@@ -1,0 +1,115 @@
+"""Carry a graph built by the reference package into the port.
+
+Here the graph plays the part that weights play in a model: the state
+handed across. ``from_reference`` takes the reference's B2SR, ELL and
+bucketed arrays, read out as numpy (``np.uint32`` words, int32
+indices), and returns the port's objects on a device. Array keys:
+
+  ``tile_row_ptr``, ``tile_col_idx``, ``bit_tiles``          B2SR
+  ``ell.tile_col_idx``, ``ell.bit_tiles``, ``ell.row_n_tiles``  ELL view
+  ``buckets.{i}.col_idx``, ``buckets.{i}.bit_tiles``,
+  ``buckets.{i}.rows``                                       bucket ``i``
+
+The reference's ``GraphMatrix`` keeps only its ELL views, so the B2SR is
+derived from the ELL when its own keys are absent. The same keys with
+the prefix ``t.`` give the transpose. ``meta`` holds ``tile_dim``,
+``n_rows``, ``n_cols`` and ``nnz`` of the forward orientation.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import csr as csr_mod
+from repro_torch.core.b2sr import B2SR, B2SRBucketedEll, B2SREll, b2sr_to_coo
+from repro_torch.core.graphblas import GraphMatrix, Orientation
+from repro_torch.core.words import from_numpy_u32
+from repro_torch.device import DeviceLike, resolve_device
+
+Arrays = Mapping[str, np.ndarray]
+
+
+def _idx(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, dtype=np.int32).copy()).to(dev)
+
+
+def _ell(arrays: Arrays, p: str, t: int, n_rows: int, n_cols: int,
+         dev: torch.device) -> Optional[B2SREll]:
+    if p + "ell.tile_col_idx" not in arrays:
+        return None
+    return B2SREll(tile_col_idx=_idx(arrays[p + "ell.tile_col_idx"], dev),
+                   bit_tiles=from_numpy_u32(arrays[p + "ell.bit_tiles"], dev),
+                   row_n_tiles=_idx(arrays[p + "ell.row_n_tiles"], dev),
+                   tile_dim=t, n_rows=n_rows, n_cols=n_cols)
+
+
+def _buckets(arrays: Arrays, p: str, t: int, n_rows: int, n_cols: int,
+             dev: torch.device) -> Optional[B2SRBucketedEll]:
+    n_b = 0
+    while f"{p}buckets.{n_b}.col_idx" in arrays:
+        n_b += 1
+    if not n_b:
+        return None
+    key = [f"{p}buckets.{i}." for i in range(n_b)]
+    return B2SRBucketedEll(
+        col_idx=tuple(_idx(arrays[k + "col_idx"], dev) for k in key),
+        bit_tiles=tuple(from_numpy_u32(arrays[k + "bit_tiles"], dev)
+                        for k in key),
+        rows=tuple(_idx(arrays[k + "rows"], dev) for k in key),
+        tile_dim=t, n_rows=n_rows, n_cols=n_cols,
+        n_tile_rows=-(-n_rows // t))
+
+
+def _b2sr(arrays: Arrays, p: str, meta: Mapping, n_rows: int, n_cols: int,
+          ell: Optional[B2SREll], dev: torch.device) -> B2SR:
+    t = int(meta["tile_dim"])
+    if p + "tile_row_ptr" in arrays:
+        ptr = _idx(arrays[p + "tile_row_ptr"], dev)
+        col = _idx(arrays[p + "tile_col_idx"], dev)
+        tiles = from_numpy_u32(arrays[p + "bit_tiles"], dev).view(-1, t)
+    elif ell is not None:
+        n_tr = -(-n_rows // t)
+        valid = ell.tile_col_idx[:n_tr] >= 0
+        ptr = torch.zeros(n_tr + 1, dtype=torch.int32, device=dev)
+        ptr[1:] = torch.cumsum(ell.row_n_tiles[:n_tr], 0)
+        col = ell.tile_col_idx[:n_tr][valid]
+        tiles = ell.bit_tiles[:n_tr][valid]
+    else:
+        raise KeyError(f"no B2SR or ELL arrays under prefix {p!r}")
+    return B2SR(tile_row_ptr=ptr, tile_col_idx=col, bit_tiles=tiles,
+                tile_dim=t, n_rows=n_rows, n_cols=n_cols,
+                nnz=int(meta["nnz"]))
+
+
+def from_reference(arrays: Arrays, meta: Mapping, device: DeviceLike = None,
+                   backend: str = "b2sr") -> Union[B2SR, GraphMatrix]:
+    """The reference's arrays as port objects on ``device`` (None = CUDA).
+
+    Returns a :class:`GraphMatrix` (CSR twins derived from the tiles, the
+    given ELL/bucketed views installed as its cached views) when the
+    transpose's arrays are present, else the forward :class:`B2SR`.
+    """
+    dev = resolve_device(device)
+    t, n_rows, n_cols = (int(meta[k]) for k in ("tile_dim", "n_rows",
+                                                "n_cols"))
+    orient: Dict[str, Orientation] = {}
+    for p, (nr, nc) in (("", (n_rows, n_cols)), ("t.", (n_cols, n_rows))):
+        if not any(k.startswith("t.") == (p == "t.") for k in arrays):
+            continue
+        ell = _ell(arrays, p, t, nr, nc, dev)
+        mat = _b2sr(arrays, p, meta, nr, nc, ell, dev)
+        rows, cols = b2sr_to_coo(mat)
+        o = Orientation(mat, csr_mod.from_coo(rows, cols, nr, nc, device=dev))
+        o.ell = ell
+        o.buckets = _buckets(arrays, p, t, nr, nc, dev)
+        orient[p] = o
+    if "" not in orient:
+        raise KeyError("no forward-orientation arrays given")
+    if "t." not in orient:
+        return orient[""].b2sr
+    return GraphMatrix(n_rows=n_rows, n_cols=n_cols, nnz=int(meta["nnz"]),
+                       tile_dim=t, fwd=orient[""], bwd=orient["t."],
+                       backend=backend)

@@ -1,0 +1,274 @@
+"""B2SR: Bit-Block Compressed Sparse Row format (torch port of ``repro.core.b2sr``).
+
+Two-level representation of a binary sparse matrix:
+  - upper level: CSR over fixed-size square tiles (tile_row_ptr / tile_col_idx)
+  - lower level: each non-empty tile is a dense bit matrix; bit-row ``r`` of a
+    tile is packed LSB-first into one word (bit ``j`` of word ``r`` is
+    element ``[r, j]`` of the tile).
+
+Every array matches the reference bit for bit; words are int32 bit
+patterns (``repro_torch.core.words``). The conversion runs with torch on
+the target device: the reference's host loops and its ``[n_tiles, t, t]``
+bit transpose do not scale to Graph500-size graphs, so ``transpose`` here
+is ``coo_to_b2sr`` of the swapped COO (canonical, hence identical).
+
+The ELL and bucketed views are kept for the ``b2sr`` word schemes; the
+CUDA kernels walk the CSR-over-tiles arrays directly and never need them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.words import WORD, pack_bits, to_int32, unpack_bits
+from repro_torch.device import DeviceLike, resolve_device
+
+TILE_DIMS = (4, 8, 16, 32)
+
+
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class B2SR:
+    """CSR-over-tiles with bit-packed tiles (words are int32 bit patterns)."""
+
+    tile_row_ptr: torch.Tensor   # int32[n_tile_rows + 1]
+    tile_col_idx: torch.Tensor   # int32[n_tiles]
+    bit_tiles: torch.Tensor      # int32[n_tiles, tile_dim]; low tile_dim bits used
+    tile_dim: int
+    n_rows: int
+    n_cols: int
+    nnz: int
+
+    @property
+    def n_tile_rows(self) -> int:
+        return ceil_div(self.n_rows, self.tile_dim)
+
+    @property
+    def n_tile_cols(self) -> int:
+        return ceil_div(self.n_cols, self.tile_dim)
+
+    @property
+    def n_tiles(self) -> int:
+        return int(self.tile_col_idx.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.tile_row_ptr.device
+
+
+@dataclasses.dataclass(frozen=True)
+class B2SREll:
+    """Padded (ELL-style) view of B2SR; ``-1`` pads ``tile_col_idx``."""
+
+    tile_col_idx: torch.Tensor   # int32[n_tile_rows, max_tiles_per_row]
+    bit_tiles: torch.Tensor      # int32[n_tile_rows, max_tiles_per_row, tile_dim]
+    row_n_tiles: torch.Tensor    # int32[n_tile_rows]
+    tile_dim: int
+    n_rows: int
+    n_cols: int
+
+    @property
+    def n_tile_rows(self) -> int:
+        return int(self.tile_col_idx.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class B2SRBucketedEll:
+    """Row-bucketed (SELL-style) ELL view: per-bucket static tiles-per-row.
+
+    Tile-rows are grouped by tile count into power-of-two ranges; bucket
+    ``b`` is a ``[rows_b, k_b]`` slab plus ``rows[b]``, the original
+    tile-row ids. Empty tile-rows belong to no bucket.
+    """
+
+    col_idx: Tuple[torch.Tensor, ...]     # int32[rows_b, k_b] (-1 = padding)
+    bit_tiles: Tuple[torch.Tensor, ...]   # int32[rows_b, k_b, tile_dim]
+    rows: Tuple[torch.Tensor, ...]        # int32[rows_b]
+    tile_dim: int
+    n_rows: int
+    n_cols: int
+    n_tile_rows: int
+
+    @property
+    def n_buckets(self) -> int:
+        return len(self.col_idx)
+
+
+def tile_rows(m: B2SR) -> torch.Tensor:
+    """Tile-row index of every stored tile (int64[n_tiles])."""
+    counts = (m.tile_row_ptr[1:] - m.tile_row_ptr[:-1]).to(torch.int64)
+    return torch.repeat_interleave(
+        torch.arange(m.n_tile_rows, device=m.device), counts)
+
+
+# ---------------------------------------------------------------------------
+# Conversion (the cusparseXcsr2bsrNnz / csr2bsr analogue), on the device
+# ---------------------------------------------------------------------------
+
+def coo_to_b2sr(rows, cols, n_rows: int, n_cols: int, tile_dim: int = 32,
+                device: DeviceLike = None) -> B2SR:
+    """Convert a binary COO matrix to B2SR. Duplicate entries are OR-ed.
+
+    ``np.bitwise_or.at`` becomes: dedup the (tile, row, bit) keys, then
+    add the distinct bits into their words (a sum of distinct powers of
+    two is their OR).
+    """
+    if tile_dim not in TILE_DIMS:
+        raise ValueError(f"tile_dim must be one of {TILE_DIMS}, got {tile_dim}")
+    dev = resolve_device(device)
+    rows = torch.as_tensor(rows, device=dev).to(torch.int64)
+    cols = torch.as_tensor(cols, device=dev).to(torch.int64)
+    if rows.numel() and (int(rows.min()) < 0 or int(rows.max()) >= n_rows):
+        raise ValueError("row index out of range")
+    if cols.numel() and (int(cols.min()) < 0 or int(cols.max()) >= n_cols):
+        raise ValueError("col index out of range")
+    t = tile_dim
+    n_tile_rows = ceil_div(n_rows, t)
+    n_tile_cols = ceil_div(n_cols, t)
+
+    tile_key = (rows // t) * n_tile_cols + cols // t
+    bit_key = torch.unique(tile_key * (t * t) + (rows % t) * t + cols % t)
+    tiles, inverse = torch.unique_consecutive(bit_key // (t * t),
+                                              return_inverse=True)
+    n_tiles = int(tiles.shape[0])
+    word_idx = inverse * t + (bit_key % (t * t)) // t
+    words = torch.zeros(n_tiles * t, dtype=torch.int64, device=dev)
+    words.index_add_(0, word_idx, torch.ones_like(bit_key) << (bit_key % t))
+
+    tile_tr = tiles // n_tile_cols
+    ptr = torch.zeros(n_tile_rows + 1, dtype=torch.int64, device=dev)
+    ptr[1:] = torch.cumsum(torch.bincount(tile_tr, minlength=n_tile_rows), 0)
+    return B2SR(
+        tile_row_ptr=ptr.to(torch.int32),
+        tile_col_idx=(tiles % n_tile_cols).to(torch.int32),
+        bit_tiles=to_int32(words).view(n_tiles, t),
+        tile_dim=t, n_rows=n_rows, n_cols=n_cols,
+        nnz=int(rows.shape[0]),
+    )
+
+
+def b2sr_to_coo(m: B2SR, chunk_words: int = 1 << 26
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B2SR -> (rows, cols) int64 COO, in the reference's order.
+
+    Unpacks ``chunk_words`` tile bits at a time, so a graph of tens of
+    millions of tiles never materialises its whole ``[n_tiles, t, t]``.
+    """
+    t = m.tile_dim
+    tr = tile_rows(m)
+    tc = m.tile_col_idx.to(torch.int64)
+    step = max(1, chunk_words // (t * t))
+    out_r, out_c = [], []
+    for s in range(0, m.n_tiles, step):
+        p, r, c = unpack_bits(m.bit_tiles[s:s + step], t).nonzero(as_tuple=True)
+        out_r.append(tr[s + p] * t + r)
+        out_c.append(tc[s + p] * t + c)
+    if not out_r:
+        empty = torch.zeros(0, dtype=torch.int64, device=m.device)
+        return empty, empty.clone()
+    return torch.cat(out_r), torch.cat(out_c)
+
+
+def transpose(m: B2SR) -> B2SR:
+    """B2SR transpose: ``coo_to_b2sr`` of the swapped COO (canonical)."""
+    rows, cols = b2sr_to_coo(m)
+    mt = coo_to_b2sr(cols, rows, m.n_cols, m.n_rows, m.tile_dim, m.device)
+    return dataclasses.replace(mt, nnz=m.nnz)
+
+
+def _tile_slots(m: B2SR) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(tile-row, position within the row) of every stored tile."""
+    tr = tile_rows(m)
+    pos = torch.arange(m.n_tiles, device=m.device) - m.tile_row_ptr[tr].long()
+    return tr, pos
+
+
+def to_ell(m: B2SR) -> B2SREll:
+    """CSR-over-tiles -> padded ELL view, as wide as the longest tile-row."""
+    counts = (m.tile_row_ptr[1:] - m.tile_row_ptr[:-1]).to(torch.int32)
+    k = max(int(counts.max()) if counts.numel() else 1, 1)
+    n_tr, t = m.n_tile_rows, m.tile_dim
+    col = torch.full((n_tr, k), -1, dtype=torch.int32, device=m.device)
+    tiles = torch.zeros((n_tr, k, t), dtype=WORD, device=m.device)
+    tr, pos = _tile_slots(m)
+    col[tr, pos] = m.tile_col_idx
+    tiles[tr, pos] = m.bit_tiles
+    return B2SREll(tile_col_idx=col, bit_tiles=tiles, row_n_tiles=counts,
+                   tile_dim=t, n_rows=m.n_rows, n_cols=m.n_cols)
+
+
+def to_bucketed(m: B2SR, max_buckets: int = 8) -> B2SRBucketedEll:
+    """B2SR -> row-bucketed (SELL-style) view, the reference's slabs.
+
+    Built from the CSR-over-tiles directly (the reference goes through
+    the single-max ELL, which on skewed graphs is far larger than the
+    graph). Tile-rows are grouped by ``ceil(log2(count))``; past
+    ``max_buckets`` ranges the widest merge into one hub slab.
+    """
+    counts = (m.tile_row_ptr[1:] - m.tile_row_ptr[:-1]).to(torch.int64)
+    nonempty = torch.nonzero(counts > 0).flatten()
+    cols_out, tiles_out, rows_out = [], [], []
+    if nonempty.numel():
+        # ceil(log2(c)) exactly: frexp(c - 1) has exponent ceil(log2(c))
+        bidx = torch.frexp((counts[nonempty] - 1).double()).exponent.long()
+        uniq = torch.unique(bidx)
+        if uniq.numel() > max_buckets:
+            keep = uniq[: max_buckets - 1]
+            bidx = torch.where(torch.isin(bidx, keep), bidx,
+                               uniq[max_buckets - 1])
+            uniq = torch.unique(bidx)
+        row_bucket = torch.full_like(counts, -1)
+        row_bucket[nonempty] = bidx
+        slot = torch.zeros_like(counts)
+        tr, pos = _tile_slots(m)
+        tile_bucket = row_bucket[tr]
+        for b in uniq.tolist():
+            rows_b = nonempty[bidx == b]
+            k_b = int(counts[rows_b].max())
+            slot[rows_b] = torch.arange(rows_b.numel(), device=m.device)
+            sel = torch.nonzero(tile_bucket == b).flatten()
+            col = torch.full((rows_b.numel(), k_b), -1, dtype=torch.int32,
+                             device=m.device)
+            tiles = torch.zeros((rows_b.numel(), k_b, m.tile_dim), dtype=WORD,
+                                device=m.device)
+            col[slot[tr[sel]], pos[sel]] = m.tile_col_idx[sel]
+            tiles[slot[tr[sel]], pos[sel]] = m.bit_tiles[sel]
+            cols_out.append(col)
+            tiles_out.append(tiles)
+            rows_out.append(rows_b.to(torch.int32))
+    return B2SRBucketedEll(
+        col_idx=tuple(cols_out), bit_tiles=tuple(tiles_out),
+        rows=tuple(rows_out), tile_dim=m.tile_dim, n_rows=m.n_rows,
+        n_cols=m.n_cols, n_tile_rows=m.n_tile_rows)
+
+
+# ---------------------------------------------------------------------------
+# Bit packing / unpacking of vectors and tiles
+# ---------------------------------------------------------------------------
+
+def pack_bitvector(x: torch.Tensor, tile_dim: int,
+                   n_cols: Optional[int] = None) -> torch.Tensor:
+    """Pack a dense 0/1 vector into per-tile words (int32, low tile_dim bits)."""
+    t = tile_dim
+    n = x.shape[0] if n_cols is None else n_cols
+    n_pad = ceil_div(n, t) * t
+    xb = torch.nn.functional.pad((x != 0).to(torch.int32),
+                                 (0, n_pad - x.shape[0]))
+    return pack_bits(xb.view(-1, t))
+
+
+def unpack_bitvector(words: torch.Tensor, tile_dim: int, n: int,
+                     dtype=torch.float32) -> torch.Tensor:
+    return unpack_bits(words, tile_dim).reshape(-1)[:n].to(dtype)
+
+
+def unpack_tiles(tiles: torch.Tensor, tile_dim: int,
+                 dtype=torch.float32) -> torch.Tensor:
+    """Words ``[..., t]`` -> dense 0/1 ``[..., t, t]`` (row, col)."""
+    return unpack_bits(tiles, tile_dim).to(dtype)

@@ -1,0 +1,171 @@
+"""Central kernel-dispatch registry for the generic GraphBLAS API.
+
+Every compute path registers its implementations here at import time,
+keyed by the full Table II/III coordinate (the reference's key):
+
+    (op, rhs, out, backend, bucketed, masked, sharded)
+
+  op        "mxv" | "mxv_pull" (the early-exit pull traversal row,
+            masked-only, selected by ``Descriptor(direction="pull")``)
+  rhs       operand kind of the right-hand side: "dense" | "bitvec"
+  out       "bin" (packed words) | "full" (dense values)
+  backend   "b2sr" (torch word schemes, ``repro_torch.core.ops``)
+            | "b2sr_cuda" (hand-written CUDA kernels,
+            ``repro_torch.kernels.*.ops``) | "csr" (float CSR baseline)
+  bucketed  whether the SELL-style row-bucketed path is active
+  masked    whether a §V output mask is applied
+  sharded   always False until the multi-GPU slice
+
+Implementations have the signature ``fn(g, rhs, call)`` and return the
+raw result (packed words or dense values). Backend modules are imported
+on the first lookup for that backend.
+
+Rows the port has not reached yet are declared with :func:`pending`, so
+resolving them names the ROADMAP item that will add them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.core.semiring import Semiring
+
+Key = Tuple[str, str, str, str, bool, bool, bool]
+
+OPS = ("mxv", "mxv_pull")
+
+#: Ops whose rows exist only with a mask: pull without the visited mask
+#: has nothing to exit on.
+MASKED_ONLY_OPS = ("mxv_pull",)
+RHS_KINDS = ("dense", "bitvec")
+OUT_KINDS = ("bin", "full")
+
+_REGISTRY: Dict[Key, Callable] = {}
+_PENDING: Dict[Tuple[str, str, str, str], str] = {}
+
+_BACKEND_MODULES: Dict[str, Tuple[str, ...]] = {
+    "b2sr": ("repro_torch.core.ops",),
+    "b2sr_cuda": ("repro_torch.kernels.bmv.ops",),
+    "csr": ("repro_torch.core.csr_backend",),
+}
+BACKENDS = tuple(_BACKEND_MODULES)
+_LOADED: set = set()
+
+
+@dataclasses.dataclass
+class OpCall:
+    """The normalized per-call context handed to registered impls.
+
+    ``mask`` is already in the row's raw form (packed words for packed
+    outputs, a dense tensor for dense outputs).
+    """
+
+    semiring: Semiring
+    mask: Any = None
+    complement: bool = False
+    row_chunk: Optional[int] = None
+
+
+BOTH = (False, True)
+
+
+def _iter_flags(v: Union[bool, Iterable[bool]]) -> Tuple[bool, ...]:
+    return (v,) if isinstance(v, bool) else tuple(v)
+
+
+def register(op: str, rhs: str, out: str, backend: str,
+             bucketed: Union[bool, Iterable[bool]] = BOTH,
+             masked: Union[bool, Iterable[bool]] = BOTH):
+    """Decorator: register ``fn`` for every (bucketed, masked) combination."""
+    if op not in OPS:
+        raise ValueError(f"unknown op {op!r}; expected one of {OPS}")
+    if rhs not in RHS_KINDS:
+        raise ValueError(f"unknown rhs kind {rhs!r}")
+    if out not in OUT_KINDS:
+        raise ValueError(f"unknown out kind {out!r}")
+
+    def deco(fn: Callable) -> Callable:
+        for b in _iter_flags(bucketed):
+            for m in _iter_flags(masked):
+                key: Key = (op, rhs, out, backend, b, m, False)
+                if key in _REGISTRY:
+                    raise ValueError(f"duplicate registration for {key}")
+                _REGISTRY[key] = fn
+        return fn
+
+    return deco
+
+
+def pending(op: str, rhs: str, out: str, backend: str, where: str) -> None:
+    """Declare a reference row that this backend does not have yet."""
+    _PENDING[(op, rhs, out, backend)] = where
+
+
+def _ensure_backend(backend: str) -> None:
+    if backend in _LOADED:
+        return
+    for mod in _BACKEND_MODULES.get(backend, ()):
+        importlib.import_module(mod)
+    _LOADED.add(backend)
+
+
+def resolve(op: str, rhs: str, out: str, backend: str, bucketed: bool,
+            masked: bool, sharded: bool = False) -> Callable:
+    """Look up the implementation for one fully-specified Table row."""
+    key: Key = (op, rhs, out, backend, bucketed, masked, sharded)
+    _ensure_backend(backend)
+    fn = _REGISTRY.get(key)
+    if fn is not None:
+        return fn
+    where = _PENDING.get((op, rhs, out, backend))
+    if where is not None:
+        raise NotImplementedError(
+            f"op={op} rhs={rhs} out={out} is not ported to backend={backend} "
+            f"yet: {where}")
+    raise NotImplementedError(
+        f"no kernel registered for op={op} rhs={rhs} out={out} "
+        f"backend={backend} bucketed={bucketed} masked={masked} "
+        f"sharded={sharded}; registered rows: "
+        f"{sorted(k for k in _REGISTRY if k[0] == op)}")
+
+
+def registered_keys(load_all: bool = False) -> Tuple[Key, ...]:
+    """All registered keys (optionally forcing every backend module in)."""
+    if load_all:
+        for backend in _BACKEND_MODULES:
+            _ensure_backend(backend)
+    return tuple(sorted(_REGISTRY))
+
+
+def out_kind_for(semiring: Semiring, rhs: str) -> str:
+    """Boolean ⊕.⊗ over a packed operand stays packed; else full values."""
+    if semiring.name == "boolean" and rhs == "bitvec":
+        return "bin"
+    return "full"
+
+
+#: Semirings each (op, rhs) pair can honor (dense-rhs mxv accepts all).
+SEMIRING_ROWS = {
+    ("mxv", "bitvec"): ("boolean", "arithmetic"),
+    ("mxv_pull", "bitvec"): ("boolean",),
+}
+
+
+def check_semiring(op: str, rhs: str, semiring: Semiring) -> None:
+    """Reject semirings the resolved Table row cannot honor."""
+    allowed = SEMIRING_ROWS.get((op, rhs))
+    if allowed is not None and semiring.name not in allowed:
+        raise NotImplementedError(
+            f"{op} over a {rhs} operand supports only the {allowed} "
+            f"semiring(s), got {semiring.name!r}")
+
+
+def apply_output_mask(y: torch.Tensor, mask: torch.Tensor, complement: bool,
+                      identity) -> torch.Tensor:
+    """§V mask-at-store for dense outputs: masked-out entries → identity."""
+    keep = (mask == 0) if complement else (mask != 0)
+    return torch.where(keep, y, identity)

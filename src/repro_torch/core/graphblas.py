@@ -1,0 +1,266 @@
+"""High-level GraphBLAS matrix object: the generic operation API.
+
+The torch twin of ``repro.core.graphblas.GraphMatrix`` for the BFS slice.
+A ``GraphMatrix`` holds, for each stored orientation (the matrix and its
+transpose), the B2SR arrays and the float CSR baseline twin, all on one
+device. ``mxv`` resolves the Table II row from the operand type and the
+semiring and looks the implementation up in ``repro_torch.core.dispatch``
+under ``(op, rhs, out, backend, bucketed, masked, sharded)``.
+
+``backend`` selects the compute path:
+  "b2sr"       torch word-level bit schemes (``repro_torch.core.ops``)
+  "b2sr_cuda"  hand-written CUDA kernels (``repro_torch.kernels``); on a
+               CPU graph the wrappers run their plain PyTorch versions
+  "csr"        float CSR baseline (``repro_torch.core.csr``)
+
+The ELL and bucketed views are built lazily, on the first ``b2sr`` row
+that reads them, and cached per orientation (shared with the transposed
+view). On skewed graphs the single-max ELL is far larger than the graph;
+the CUDA kernels and the CSR baseline never build it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import b2sr as b2sr_mod
+from repro_torch.core import csr as csr_mod
+from repro_torch.core import descriptor as descriptor_mod
+from repro_torch.core import dispatch
+from repro_torch.core.b2sr import B2SR, B2SRBucketedEll, B2SREll, pack_bitvector
+from repro_torch.core.descriptor import _UNSET, Descriptor
+from repro_torch.core.dispatch import OpCall
+from repro_torch.core.operands import BitVector, check_operand, operand_kind
+from repro_torch.core.semiring import ARITHMETIC, BOOLEAN, Semiring
+from repro_torch.device import DeviceLike, resolve_device
+
+BACKENDS = dispatch.BACKENDS
+
+
+class Orientation:
+    """One stored orientation: B2SR + CSR twin, with lazy ELL/bucketed views."""
+
+    def __init__(self, b2sr: B2SR, csr: csr_mod.CSRMatrix):
+        self.b2sr = b2sr
+        self.csr = csr
+        self.ell: Optional[B2SREll] = None
+        self.buckets: Optional[B2SRBucketedEll] = None
+
+    def get_ell(self) -> B2SREll:
+        if self.ell is None:
+            self.ell = b2sr_mod.to_ell(self.b2sr)
+        return self.ell
+
+    def get_buckets(self) -> B2SRBucketedEll:
+        if self.buckets is None:
+            self.buckets = b2sr_mod.to_bucketed(self.b2sr)
+        return self.buckets
+
+
+@dataclasses.dataclass
+class GraphMatrix:
+    """A homogeneous-graph adjacency matrix, multi-format, on one device."""
+
+    n_rows: int
+    n_cols: int
+    nnz: int
+    tile_dim: int
+    fwd: Orientation
+    bwd: Optional[Orientation]        # transpose, for vxm / pull traversal
+    backend: str = "b2sr"
+    use_buckets: bool = True
+    degrees_cache: Optional[torch.Tensor] = None
+    transposed_cache: Optional["GraphMatrix"] = None
+
+    # -- constructors -------------------------------------------------------
+    @staticmethod
+    def from_coo(rows, cols, n_rows: int, n_cols: int, tile_dim: int = 32,
+                 with_transpose: bool = True, backend: str = "b2sr",
+                 device: DeviceLike = None) -> "GraphMatrix":
+        """Build every representation on ``device`` (``None`` = CUDA)."""
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}")
+        dev = resolve_device(device)
+        rows = torch.as_tensor(rows, device=dev).to(torch.int64)
+        cols = torch.as_tensor(cols, device=dev).to(torch.int64)
+        mat = b2sr_mod.coo_to_b2sr(rows, cols, n_rows, n_cols, tile_dim, dev)
+        fwd = Orientation(mat, csr_mod.from_coo(rows, cols, n_rows, n_cols,
+                                                device=dev))
+        bwd = None
+        if with_transpose:
+            mt = b2sr_mod.coo_to_b2sr(cols, rows, n_cols, n_rows, tile_dim,
+                                      dev)
+            bwd = Orientation(mt, csr_mod.from_coo(cols, rows, n_cols, n_rows,
+                                                   device=dev))
+        return GraphMatrix(n_rows=n_rows, n_cols=n_cols, nnz=mat.nnz,
+                           tile_dim=tile_dim, fwd=fwd, bwd=bwd,
+                           backend=backend)
+
+    @staticmethod
+    def from_dense(mat, tile_dim: int = 32, **kw) -> "GraphMatrix":
+        rows, cols = torch.nonzero(torch.as_tensor(mat), as_tuple=True)
+        return GraphMatrix.from_coo(rows, cols, mat.shape[0], mat.shape[1],
+                                    tile_dim, **kw)
+
+    def with_backend(self, backend: str) -> "GraphMatrix":
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, "
+                             f"got {backend!r}")
+        return dataclasses.replace(self, backend=backend,
+                                   transposed_cache=None)
+
+    def with_buckets(self, use_buckets: bool) -> "GraphMatrix":
+        """Toggle the bucketed (SELL-style) compute path on the b2sr backend."""
+        return dataclasses.replace(self, use_buckets=use_buckets,
+                                   transposed_cache=None)
+
+    def transposed(self) -> "GraphMatrix":
+        """Aᵀ as a view: swap the stored orientations.
+
+        Memoized, and the view's back-reference makes ``transposed()`` an
+        involution; the lazy views are shared through the orientations.
+        """
+        if self.transposed_cache is not None:
+            return self.transposed_cache
+        if self.bwd is None:
+            raise ValueError("GraphMatrix built without transpose "
+                             "(with_transpose=True)")
+        gt = dataclasses.replace(self, fwd=self.bwd, bwd=self.fwd,
+                                 n_rows=self.n_cols, n_cols=self.n_rows,
+                                 degrees_cache=None, transposed_cache=self)
+        self.transposed_cache = gt
+        return gt
+
+    # -- stored representations ----------------------------------------------
+    @property
+    def device(self) -> torch.device:
+        return self.fwd.b2sr.device
+
+    @property
+    def b2sr(self) -> B2SR:
+        return self.fwd.b2sr
+
+    @property
+    def csr(self) -> csr_mod.CSRMatrix:
+        return self.fwd.csr
+
+    @property
+    def ell(self) -> B2SREll:
+        """The padded ELL view of ``b2sr``, built lazily and cached."""
+        return self.fwd.get_ell()
+
+    def buckets(self) -> B2SRBucketedEll:
+        """The bucketed view of ``b2sr``, built lazily and cached."""
+        return self.fwd.get_buckets()
+
+    def _bucketed(self, row_chunk: Optional[int] = None) -> bool:
+        """Whether this op dispatches to the bucketed path."""
+        return self.use_buckets and row_chunk is None
+
+    # -- packed-vector helpers ---------------------------------------------
+    def pack(self, x: torch.Tensor) -> torch.Tensor:
+        """Binarize + bit-pack a column-space vector (raw int32 words)."""
+        return pack_bitvector(x, self.tile_dim, self.n_cols)
+
+    def pack_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Binarize + bit-pack a row-space vector (output/frontier side)."""
+        return pack_bitvector(x, self.tile_dim, self.n_rows)
+
+    # -- the generic operation ----------------------------------------------
+    def mxv(self, x, semiring: Optional[Semiring] = None,
+            desc: Optional[Descriptor] = None, *, out=None, mask=_UNSET,
+            complement=_UNSET, row_chunk=_UNSET):
+        """y = A ⊕.⊗ x — the generic matrix-vector product (paper Table II).
+
+        A ``BitVector`` ``x`` on the boolean semiring is the bin·bin→bin
+        row (the BFS step) and returns a ``BitVector``. ``semiring``
+        defaults to boolean for packed operands and arithmetic for dense
+        ones. ``desc`` carries mask / complement / transpose / replace /
+        row_chunk / direction.
+        """
+        desc = descriptor_mod.merge_sugar(desc, mask, complement, row_chunk)
+        if desc.transpose_a:
+            return self.transposed().mxv(
+                x, semiring, desc.replace_with(transpose_a=False), out=out)
+        kind = operand_kind(x)
+        if kind not in ("dense", "bitvec"):
+            raise TypeError(f"mxv right-hand side must be a dense vector or "
+                            f"BitVector, got {type(x).__name__}")
+        if kind == "bitvec":
+            check_operand(x, self.tile_dim, self.n_cols, "x")
+        semiring = semiring if semiring is not None else (
+            BOOLEAN if kind == "bitvec" else ARITHMETIC)
+        dispatch.check_semiring("mxv", kind, semiring)
+        out_kind = dispatch.out_kind_for(semiring, kind)
+        call = OpCall(
+            semiring=semiring, mask=self._norm_mask(desc.mask, out_kind),
+            complement=desc.complement, row_chunk=desc.row_chunk)
+        op = self._direction_op("mxv", desc, kind, "bitvec", out_kind,
+                                call.mask is not None)
+        impl = dispatch.resolve(op, kind, out_kind, self.backend,
+                                self._bucketed(desc.row_chunk),
+                                call.mask is not None)
+        y = impl(self, x.words if kind == "bitvec" else x, call)
+        # only packed rows are registered in this slice: resolve() raises
+        # for the dense and count rows before this point
+        y = BitVector.from_words(y, self.n_rows, self.tile_dim)
+        return self._merge_unreplaced(y, desc, out, call)
+
+    def vxm(self, x, semiring: Optional[Semiring] = None,
+            desc: Optional[Descriptor] = None, *, mask=_UNSET,
+            complement=_UNSET, row_chunk=_UNSET, **kw):
+        """xᵀ·A: ``mxv`` with the descriptor's input transpose."""
+        desc = descriptor_mod.merge_sugar(desc, mask, complement, row_chunk)
+        return self.mxv(x, semiring, desc.replace_with(transpose_a=True),
+                        **kw)
+
+    # -- generic-layer helpers ---------------------------------------------
+    @staticmethod
+    def _direction_op(base: str, desc: Descriptor, kind: str,
+                      pull_kind: str, out_kind: str, masked: bool) -> str:
+        """Resolve ``desc.direction`` to the registry op name; pull exists
+        only for the masked packed traversal and is rejected elsewhere."""
+        if desc.direction is None:
+            return base
+        if desc.direction != "pull":
+            raise ValueError(f"unknown descriptor direction "
+                             f"{desc.direction!r}; expected None or 'pull'")
+        if kind != pull_kind or out_kind != "bin" or not masked:
+            raise ValueError(
+                f"direction='pull' applies only to the masked packed "
+                f"traversal row ({base} over a {pull_kind} operand on the "
+                f"boolean semiring with a visited mask); got rhs={kind} "
+                f"out={out_kind} masked={masked}")
+        return base + "_pull"
+
+    def _norm_mask(self, mask, out_kind: str):
+        """Validate the descriptor mask and strip it to the row's raw form
+        (packed words for the packed rows, the only rows of this slice)."""
+        if mask is None or out_kind != "bin":
+            return mask
+        if not isinstance(mask, BitVector):
+            raise TypeError("packed mxv takes a BitVector mask")
+        check_operand(mask, self.tile_dim, self.n_rows, "mask")
+        return mask.words
+
+    @staticmethod
+    def _merge_unreplaced(y: BitVector, desc: Descriptor, out,
+                          call: OpCall) -> BitVector:
+        """Apply ``desc.replace=False``: masked-out bits come from ``out``."""
+        if desc.replace or desc.mask is None:
+            return y
+        if out is None:
+            raise ValueError("desc.replace=False needs the previous output "
+                             "(out=) to merge masked-out entries from")
+        m = call.mask if not desc.complement else ~call.mask
+        return y._like((y.words & m) | (out.words & ~m))
+
+    def degrees(self) -> torch.Tensor:
+        """Out-degree vector from the CSR twin (row_ptr diff); memoized."""
+        if self.degrees_cache is None:
+            ptr = self.csr.row_ptr
+            self.degrees_cache = (ptr[1:] - ptr[:-1]).to(torch.float32)
+        return self.degrees_cache

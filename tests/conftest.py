@@ -35,3 +35,9 @@ def optional_hypothesis():
             return lambda *a, **k: None
 
     return given, settings, _Strategies()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips (inside the test's "
+        "fixture) where torch.cuda.is_available() is false")
