@@ -3,30 +3,53 @@
 
 Run from the repository root with no arguments:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # R-MAT scale 21, the default
+    python3 chip_smoke.py --scale 16 # a quicker rehearsal
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels`` and
-drives the BFS slice through the port's entry points. Each phase prints
-one JSON line; a failed phase exits non-zero.
+drives BFS, SSSP, PageRank/PPR, CC and the generic mxv rows through the
+port's entry points. Each phase prints one JSON line; a failed phase
+exits non-zero.
 
-  1. kernels: ``bmv_bbb_push`` and ``bmv_bbb_pull`` against their plain
-     PyTorch versions (``kernels/bmv/ref.py``) on the card, bit for bit:
-     tile dims 4/8/16/32 on small dot/rmat/road graphs and the full graph,
-     frontiers at 0.1%/10%/60% density, masks with complement on and off.
+  1. kernels: each kernel against its plain PyTorch version
+     (``kernels/bmv/ref.py``) on the card, at tile dims 4/8/16/32 on small
+     dot/rmat/road graphs and on the full graph. ``bmv_bbb_push`` and
+     ``bmv_bbb_pull`` bit for bit (frontiers at 0.1%/10%/60% density,
+     masks with complement on and off); ``bmv_bbf`` bit for bit (the same
+     frontiers); ``bmv_bff`` bit for bit in modes min_plus and max_times
+     and, in mode sum, within ``|y - y_plain| <= 1e-5 * (A·|a·x|)``
+     elementwise, each with ``a_value`` 1.0 and 0.0.
   2. bfs: Graph500 R-MAT scale 21, edgefactor 16 (n = 2,097,152;
      A/B/C = 0.57/0.19/0.19; symmetrised, no self-loops), tile dim 32.
-     ``direction`` push/pull/auto from 4 sources on ``b2sr_cuda`` (the
-     main path; kernel launch counts are reset just before it and read
-     just after), then on ``csr``: levels, n_iterations and directions
-     must be equal, and levels must equal SciPy's unweighted
-     ``shortest_path`` (-1 for unreachable). Prints each traversal's wall
-     time and the median rate in traversed edges per second.
-  3. timing: per kernel the median time of one launch (CUDA events) on
-     each iteration's inputs of one traversal, beside its plain version,
-     the ``csr`` row, one cuSPARSE SpMV call (``torch.mv`` on the float
-     CSR) and the bound (bytes over 3.35 TB/s).
-  4. profile: one traversal per direction under ``torch.profiler``:
-     device time by kernel and the card's idle share of the wall time.
+     ``direction`` push/pull/auto from 4 sources on ``b2sr_cuda``, then on
+     ``csr``: levels, n_iterations and directions must be equal, and levels
+     must equal SciPy's unweighted ``shortest_path`` (-1 for unreachable).
+     Prints each traversal's wall time and the median rate in traversed
+     edges per second.
+  3. sssp: from the same 4 sources on ``b2sr_cuda`` and ``csr``;
+     distances must equal SciPy's levels (inf for unreachable) and the two
+     backends' iterations must be equal.
+  4. pagerank: PageRank and PPR (from the first source) on ``b2sr_cuda``
+     and ``csr``; ranks allclose (rtol 1e-4) to a float64 numpy power
+     iteration of the same update and to each other.
+  5. cc: push, pull and auto on ``b2sr_cuda`` and ``csr``; labels must
+     equal SciPy's ``connected_components`` with the minimum vertex id of
+     each component as its label, iterations and directions equal.
+  6. mxv: the generic rows no algorithm of this slice runs, through
+     ``GraphMatrix.mxv``: the count row (``BitVector`` x, arithmetic) on
+     one BFS traversal's frontiers and the max-times dense row, masked and
+     unmasked, on ``b2sr_cuda`` against ``csr``.
+     In phases 2-6 the kernels' launch counts are set to 0 just before
+     the phase's ``b2sr_cuda`` runs and read just after; a kernel of the
+     phase that never launched fails the run.
+  7. timing: per kernel the median time of one launch (CUDA events) on
+     the main path's inputs (each iteration of one run), beside its plain
+     version, the ``csr`` row, one cuSPARSE SpMV call (``torch.mv`` on the
+     float CSR) where that computes the same function, and the bound
+     (bytes over 3.35 TB/s or operations over 67 TFLOP/s); the graph's
+     B2SR and CSR bytes.
+  8. profile: one run per algorithm and BFS direction under
+     ``torch.profiler``: device time by kernel and the card's idle share.
 
 Then the card's name and power limit, the kernel table as one JSON line,
 and last ``{"ok": true, "device": {...}}``. Without CUDA it exits 1
@@ -35,6 +58,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -56,11 +80,17 @@ N_SOURCES = 4
 DIRECTIONS = ("push", "pull", "auto")
 DENSITIES = (0.001, 0.1, 0.6)
 REPS = 15
+PLAIN_REPS = 3
+SUM_TOL = 1e-5                 # bmv_bff sum mode: |y - y_plain| <= SUM_TOL * A·|a·x|
+RANK_RTOL = 1e-4               # float32 ranks against float64 numpy
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 LANE_OPS_PER_S = 67e12         # H100 SXM 32-bit rate outside the tensor cores
+DEVICE = "cuda"
 KERNELS = {
     "bmv_bbb_push": "src/repro/kernels/bmv/bmv.py:96",
     "bmv_bbb_pull": "src/repro/kernels/bmv/bmv.py:170",
+    "bmv_bff": "src/repro/kernels/bmv/bmv.py:235",
+    "bmv_bbf": "src/repro/kernels/bmv/bmv.py:43",
 }
 
 
@@ -73,12 +103,16 @@ def fail(phase: str, msg: str) -> None:
     sys.exit(1)
 
 
-def sync_time(fn):
+def sync() -> None:
     import torch
     torch.cuda.synchronize()
+
+
+def sync_time(fn):
+    sync()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     return out, time.perf_counter() - t0
 
 
@@ -98,13 +132,73 @@ def event_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def reset_launches(names):
+    from repro_torch.kernels.bmv import bmv
+    for k in names:
+        getattr(bmv, k).launches = 0
+
+
+def read_launches(phase: str, names):
+    """The launch counts of ``names``; a kernel that never launched fails."""
+    from repro_torch.kernels.bmv import bmv
+    launches = {k: getattr(bmv, k).launches for k in names}
+    if not all(launches.values()):
+        fail(phase, f"a kernel of the path never launched: {launches}")
+    return launches
+
+
 def kernel_args(m, x, mask, comp):
     return (m.tile_row_ptr, m.tile_col_idx, m.bit_tiles, x, mask), \
         {"t": m.tile_dim, "complement": comp}
 
 
+def b2sr_args(m):
+    return m.tile_row_ptr, m.tile_col_idx, m.bit_tiles
+
+
+def value_err(got, want):
+    """Largest |got - want| with equal entries (inf == inf) counting 0."""
+    import torch
+    d = torch.where(got == want, 0.0, (got.double() - want.double()).abs())
+    return float(d.max()) if d.numel() else 0.0
+
+
+def check_bff(m, x3, mode, a_value):
+    """bmv_bff against its plain version: (error, error over the bound, ok).
+
+    min_plus and max_times must be equal entry for entry; sum must stay
+    within SUM_TOL · (A·|a·x|) elementwise (the plain sum is float64).
+    """
+    import torch
+    from repro_torch.kernels.bmv import bmv, ref
+    args, t = b2sr_args(m), m.tile_dim
+    got = bmv.bmv_bff(*args, x3, t=t, mode=mode, a_value=a_value)
+    want = ref.bmv_bff(*args, x3, t=t, mode=mode, a_value=a_value)
+    sync()
+    err = value_err(got, want)
+    if mode != "sum":
+        return err, None, err == 0
+    bound = SUM_TOL * ref.bmv_bff(*args, x3.abs(), t=t, mode="sum",
+                                  a_value=abs(a_value))
+    excess = (got.double() - want.double()).abs() - bound.double()
+    ratio = float(((got - want).abs() / bound.clamp_min(1e-30)).max())
+    return err, ratio, bool((excess <= 0).all())
+
+
+def bff_inputs(n_tile_cols, t, rng, mode):
+    """x3 for one mode: uniform [0, 1); min_plus gets 30% inf (unreached
+    vertices, as in SSSP), max_times negative values too."""
+    import torch
+    x = rng.random((n_tile_cols, t), dtype=np.float32)
+    if mode == "max_times":
+        x = 2 * x - 1
+    if mode == "min_plus":
+        x[rng.random(x.shape) < 0.3] = np.inf
+    return torch.as_tensor(x, device=DEVICE)
+
+
 def phase_kernels(full_g, rng):
-    """Each kernel against its plain version, bit for bit, on the card."""
+    """Each kernel against its plain version, on the card."""
     import torch
     from repro_torch.core.graphblas import GraphMatrix
     from repro_torch.core.words import to_uint
@@ -114,70 +208,84 @@ def phase_kernels(full_g, rng):
     small = {"dot": (G.dot_graph(3000, 0.004, seed=SEED), 3000),
              "rmat": (G.rmat_graph(4096, 16, seed=SEED), 4096),
              "road": (G.road_graph(64), 4096)}
-    cases = [(name, GraphMatrix.from_coo(r, c, n, n, t))
+    cases = [(name, GraphMatrix.from_coo(r, c, n, n, t, device=DEVICE))
              for name, ((r, c), n) in small.items() for t in (4, 8, 16, 32)]
-    cases.append(("rmat_scale21", full_g.transposed()))
+    cases.append(("rmat_full", full_g.transposed()))
     n_checks, bad = 0, []
-    max_err = dict.fromkeys(KERNELS, 0)
+    max_err = dict.fromkeys(KERNELS, 0.0)
+    worst_sum_ratio = 0.0
     for name, g in cases:
         m = g.b2sr
         for dens in DENSITIES:
             x = g.pack(torch.as_tensor(rng.random(g.n_cols) < dens,
-                                       device="cuda"))
+                                       device=DEVICE))
             mask = g.pack_rows(torch.as_tensor(rng.random(g.n_rows) < 0.5,
-                                               device="cuda"))
+                                               device=DEVICE))
             for comp in (True, False):
                 args, kw = kernel_args(m, x, mask, comp)
-                for k in KERNELS:
+                for k in ("bmv_bbb_push", "bmv_bbb_pull"):
                     got = getattr(bmv, k)(*args, **kw)
                     want = getattr(ref, k)(*args, **kw)
-                    torch.cuda.synchronize()
+                    sync()
                     err = int((to_uint(got) - to_uint(want)).abs().max())
                     max_err[k] = max(max_err[k], err)
                     n_checks += 1
                     if err:
                         bad.append([k, name, m.tile_dim, dens, comp])
-    line = {"phase": "kernels", "ok": not bad, "checks": n_checks,
-            "max_abs_err": max_err, "mismatches": bad[:10]}
-    emit(line)
+            got = bmv.bmv_bbf(*b2sr_args(m), x, t=m.tile_dim)
+            want = ref.bmv_bbf(*b2sr_args(m), x, t=m.tile_dim)
+            sync()
+            err = int((got - want).abs().max())
+            max_err["bmv_bbf"] = max(max_err["bmv_bbf"], err)
+            n_checks += 1
+            if err:
+                bad.append(["bmv_bbf", name, m.tile_dim, dens])
+        for mode in ref.BFF_MODES:
+            x3 = bff_inputs(m.n_tile_cols, m.tile_dim, rng, mode)
+            for a_value in (1.0, 0.0):
+                err, ratio, ok = check_bff(m, x3, mode, a_value)
+                max_err["bmv_bff"] = max(max_err["bmv_bff"], err)
+                if ratio is not None:
+                    worst_sum_ratio = max(worst_sum_ratio, ratio)
+                n_checks += 1
+                if not ok:
+                    bad.append(["bmv_bff", name, m.tile_dim, mode, a_value])
+    emit({"phase": "kernels", "ok": not bad, "checks": n_checks,
+          "max_abs_err": max_err,
+          "bff_sum_err_over_bound": worst_sum_ratio,
+          "mismatches": bad[:10]})
     if bad:
         fail("kernels", f"{len(bad)} kernel/plain mismatches")
     return max_err
 
 
-def scipy_levels(rows, cols, n, sources):
-    import scipy.sparse as sp
+def scipy_levels(adj, sources):
     from scipy.sparse.csgraph import shortest_path
-    a = sp.csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(n, n))
-    d = shortest_path(a, directed=True, unweighted=True, indices=sources)
+    d = shortest_path(adj, directed=True, unweighted=True, indices=sources)
     return np.where(np.isinf(d), -1, d).astype(np.int32)
 
 
-def phase_bfs(g, rows, cols, deg, sources):
-    """The main path on b2sr_cuda, checked against csr and SciPy.
+def phase_bfs(g, deg, sources, want):
+    """The BFS path on b2sr_cuda, checked against csr and SciPy.
 
     Rate: Graph500's traversed edges per second, the undirected edges of
     the source's component over the traversal's wall time.
     """
     from repro_torch.algorithms import bfs
-    from repro_torch.kernels.bmv import bmv
 
-    bmv.bmv_bbb_push.launches = 0
-    bmv.bmv_bbb_pull.launches = 0
+    names = ("bmv_bbb_push", "bmv_bbb_pull")
+    reset_launches(names)
     runs, wall = {}, {}
     for d in DIRECTIONS:
         for s in sources:
             runs["b2sr_cuda", d, s], wall["b2sr_cuda", d, s] = sync_time(
                 lambda: bfs(g, s, direction=d))
-    launches = {k: getattr(bmv, k).launches for k in KERNELS}
-    if not all(launches.values()):
-        fail("bfs", f"a kernel of the path never launched: {launches}")
+    launches = read_launches("bfs", names)
     gc = g.with_backend("csr")
     for d in DIRECTIONS:
         for s in sources:
             runs["csr", d, s], wall["csr", d, s] = sync_time(
                 lambda: bfs(gc, s, direction=d))
-    want = scipy_levels(rows, cols, g.n_rows, sources)
     problems = []
     for d in DIRECTIONS:
         for i, s in enumerate(sources):
@@ -211,8 +319,184 @@ def phase_bfs(g, rows, cols, deg, sources):
     return runs["b2sr_cuda", "push", sources[0]], launches
 
 
+def run_both(phase, g, names, cases):
+    """Run ``cases`` ({key: fn(graph)}) on b2sr_cuda (launch counts reset
+    just before, read just after), then on csr; results and wall times."""
+    reset_launches(names)
+    res, wall = {}, {}
+    for key, fn in cases.items():
+        res["b2sr_cuda", key], wall["b2sr_cuda", key] = sync_time(
+            lambda: fn(g))
+    launches = read_launches(phase, names)
+    gc = g.with_backend("csr")
+    for key, fn in cases.items():
+        res["csr", key], wall["csr", key] = sync_time(lambda: fn(gc))
+    return res, wall, launches
+
+
+def phase_sssp(g, sources, want):
+    """SSSP on both backends; distances must equal SciPy's levels."""
+    from repro_torch.algorithms import sssp
+
+    res, wall, launches = run_both(
+        "sssp", g, ("bmv_bff",),
+        {s: (lambda gg, s=s: sssp(gg, s)) for s in sources})
+    problems = []
+    for i, s in enumerate(sources):
+        ref_d = np.where(want[i] < 0, np.inf, want[i]).astype(np.float32)
+        for be in ("b2sr_cuda", "csr"):
+            if not np.array_equal(res[be, s].distances.cpu().numpy(), ref_d):
+                problems.append(f"distances != scipy ({be}, {s})")
+        if res["b2sr_cuda", s].n_iterations != res["csr", s].n_iterations:
+            problems.append(f"n_iterations != csr ({s})")
+    emit({"phase": "sssp", "ok": not problems, "problems": problems[:10],
+          "sources": sources, "launches": launches,
+          "n_iterations": [res["b2sr_cuda", s].n_iterations for s in sources],
+          "sssp_wall_s": {be: [wall[be, s] for s in sources]
+                          for be in ("b2sr_cuda", "csr")}})
+    if problems:
+        fail("sssp", "; ".join(problems[:5]))
+    return res["b2sr_cuda", sources[0]], launches
+
+
+def numpy_ranks(adj, n_iterations, alpha=0.85, restart=None):
+    """The port's PageRank / PPR update in float64 with SciPy's A."""
+    n = adj.shape[0]
+    at = adj.T.tocsr()
+    deg = np.asarray(adj.getnnz(axis=1), dtype=np.float64)
+    dangling = deg == 0
+    safe = np.where(dangling, 1.0, deg)
+    pr = np.full(n, 1.0 / n) if restart is None else restart.copy()
+    for _ in range(n_iterations):
+        contrib = at @ (pr / safe)
+        dm = pr[dangling].sum()
+        if restart is None:
+            pr = alpha * (contrib + dm / n) + (1 - alpha) / n
+        else:
+            pr = alpha * contrib + (alpha * dm + 1 - alpha) * restart
+    return pr
+
+
+def phase_pagerank(g, adj, source):
+    """PageRank and PPR on both backends against float64 numpy."""
+    from repro_torch.algorithms import pagerank, ppr
+
+    res, wall, launches = run_both(
+        "pagerank", g, ("bmv_bff",),
+        {"pagerank": pagerank, "ppr": lambda gg: ppr(gg, source)})
+    restart = np.zeros(g.n_rows)
+    restart[source] = 1.0
+    problems, rel = [], {}
+    for key, rs in (("pagerank", None), ("ppr", restart)):
+        n_it = res["b2sr_cuda", key].n_iterations
+        want = numpy_ranks(adj, n_it, restart=rs)
+        got = {be: res[be, key].ranks.cpu().numpy().astype(np.float64)
+               for be in ("b2sr_cuda", "csr")}
+        for be, other in (("b2sr_cuda", want), ("csr", want),
+                          ("b2sr_cuda", got["csr"])):
+            label = f"{key}/{be} vs {'numpy' if other is want else 'csr'}"
+            nz = other != 0
+            rel[label] = float(np.max(np.abs(got[be] - other)[nz]
+                                      / np.abs(other[nz])))
+            if not np.allclose(got[be], other, rtol=RANK_RTOL, atol=0):
+                problems.append(label)
+        if n_it != res["csr", key].n_iterations:
+            problems.append(f"{key} n_iterations != csr")
+    emit({"phase": "pagerank", "ok": not problems, "problems": problems,
+          "launches": launches, "max_rel_err": rel,
+          "n_iterations": {k: res["b2sr_cuda", k].n_iterations
+                           for k in ("pagerank", "ppr")},
+          "wall_s": {f"{be}/{k}": wall[be, k]
+                     for be in ("b2sr_cuda", "csr")
+                     for k in ("pagerank", "ppr")}})
+    if problems:
+        fail("pagerank", "; ".join(problems))
+    return res["b2sr_cuda", "pagerank"], launches
+
+
+def phase_cc(g, adj):
+    """CC push/pull/auto on both backends against SciPy's components."""
+    from scipy.sparse.csgraph import connected_components as scipy_cc
+    from repro_torch.algorithms import connected_components
+
+    n_comp, comp = scipy_cc(adj, directed=False)
+    rep = np.full(n_comp, g.n_rows, dtype=np.int64)
+    np.minimum.at(rep, comp, np.arange(g.n_rows))
+    want = rep[comp].astype(np.int32)
+    res, wall, launches = run_both(
+        "cc", g, ("bmv_bff",),
+        {d: (lambda gg, d=d: connected_components(gg, direction=d))
+         for d in DIRECTIONS})
+    problems = []
+    for d in DIRECTIONS:
+        a, b = res["b2sr_cuda", d], res["csr", d]
+        if not np.array_equal(a.labels.cpu().numpy(), want):
+            problems.append(f"labels != scipy (b2sr_cuda, {d})")
+        if not np.array_equal(b.labels.cpu().numpy(), want):
+            problems.append(f"labels != scipy (csr, {d})")
+        if (a.n_iterations, a.directions) != (b.n_iterations, b.directions):
+            problems.append(f"schedule != csr ({d})")
+    emit({"phase": "cc", "ok": not problems, "problems": problems,
+          "components": int(n_comp), "launches": launches,
+          "n_iterations": {d: res["b2sr_cuda", d].n_iterations
+                           for d in DIRECTIONS},
+          "directions": {d: list(res["b2sr_cuda", d].directions)
+                         for d in DIRECTIONS},
+          "cc_wall_s": {f"{be}/{d}": wall[be, d]
+                        for be in ("b2sr_cuda", "csr") for d in DIRECTIONS}})
+    if problems:
+        fail("cc", "; ".join(problems))
+    return res["b2sr_cuda", "push"], launches
+
+
+def frontiers(gt, levels, n_iterations):
+    """The packed frontier of each iteration of one BFS (column space of
+    ``gt``), as BitVectors."""
+    import torch
+    from repro_torch.core.operands import BitVector
+    return [BitVector.pack((levels == it).to(torch.int32), gt.tile_dim,
+                           gt.n_cols) for it in range(n_iterations)]
+
+
+def phase_mxv(g, levels, n_iterations, rng):
+    """The count row and the max-times dense row through GraphMatrix.mxv
+    on b2sr_cuda, each against csr (exact), masked and unmasked."""
+    import torch
+    from repro_torch.core.descriptor import Descriptor
+    from repro_torch.core.operands import BitVector
+    from repro_torch.core.semiring import ARITHMETIC, MAX_TIMES
+
+    gt = g.transposed()
+    mask = BitVector.pack(torch.as_tensor(rng.random(gt.n_rows) < 0.5,
+                                          device=DEVICE), gt.tile_dim,
+                          gt.n_rows)
+    x = torch.as_tensor(2 * rng.random(gt.n_cols, dtype=np.float32) - 1,
+                        device=DEVICE)
+    fronts = frontiers(gt, levels, n_iterations)
+    cases = {f"count/{i}": (lambda gg, xf=xf: gg.mxv(
+        xf, ARITHMETIC, out_dtype=torch.int32)) for i, xf in enumerate(fronts)}
+    cases["count/masked"] = lambda gg: gg.mxv(
+        fronts[n_iterations // 2], ARITHMETIC,
+        Descriptor(mask=mask, complement=True))
+    for a_value in (1.0, 0.5):
+        cases[f"max_times/{a_value}"] = (lambda gg, a=a_value: gg.mxv(
+            x, MAX_TIMES, a_value=a))
+    cases["max_times/masked"] = lambda gg: gg.mxv(
+        x, MAX_TIMES, Descriptor(mask=mask), a_value=0.5)
+    res, wall, launches = run_both("mxv", gt, ("bmv_bff", "bmv_bbf"), cases)
+    problems = [k for k in cases
+                if not torch.equal(res["b2sr_cuda", k], res["csr", k])]
+    emit({"phase": "mxv", "ok": not problems, "problems": problems,
+          "launches": launches,
+          "wall_ms": {f"{be}/{k}": 1e3 * wall[be, k]
+                      for be in ("b2sr_cuda", "csr") for k in cases}})
+    if problems:
+        fail("mxv", f"b2sr_cuda != csr on {problems}")
+    return launches
+
+
 def needed_bytes_ops(m, x, mask, kernel):
-    """Bytes and lane operations the inputs need (data-dependent).
+    """Bytes and operations the inputs need (data-dependent).
 
     Counted once: row pointers, x, mask and the output. Push reads the
     column index of every tile and the t words of each tile whose
@@ -221,12 +505,15 @@ def needed_bytes_ops(m, x, mask, kernel):
     after which every allowed lane that any tile of the row can set is
     set (the early exit at one-tile granularity; the kernel stops at
     32-tile granularity, so it reads at least this). Operations: an AND
-    and an OR per tile word read.
+    and an OR per tile word read. The count kernel reads what push reads
+    and writes t int32 per tile-row, with an AND, a popcount and an add
+    per tile word read.
     """
     import torch
     from repro_torch.core.b2sr import tile_rows
     from repro_torch.core.words import lane_mask, unpack_bits
 
+    t = m.tile_dim
     tr = tile_rows(m)
     xw_nz = x[m.tile_col_idx.long()] != 0
     if kernel == "bmv_bbb_pull":
@@ -234,9 +521,9 @@ def needed_bytes_ops(m, x, mask, kernel):
         pos = torch.arange(m.n_tiles, device=x.device) - \
             m.tile_row_ptr[tr].long()
         count = (m.tile_row_ptr[1:] - m.tile_row_ptr[:-1]).long()
-        allowed = unpack_bits(~mask & lane_mask(m.tile_dim), m.tile_dim)
+        allowed = unpack_bits(~mask & lane_mask(t), t)
         walk = torch.zeros(n_rows, dtype=torch.long, device=x.device)
-        for b in range(m.tile_dim):     # first tile of each row setting lane b
+        for b in range(t):     # first tile of each row setting lane b
             hit = torch.nonzero(xw_nz & ((m.bit_tiles[:, b] & x[
                 m.tile_col_idx.long()]) != 0)).flatten()
             first = torch.full((n_rows,), -1, dtype=torch.long,
@@ -251,104 +538,243 @@ def needed_bytes_ops(m, x, mask, kernel):
     else:
         n_col, n_tiles = m.n_tiles, int(xw_nz.sum())
     r, c = m.n_tile_rows, m.n_tile_cols
-    nbytes = 4 * ((r + 1) + n_col + n_tiles * m.tile_dim + c + r + r)
-    ops = 2 * n_tiles * m.tile_dim
-    return nbytes, ops
+    if kernel == "bmv_bbf":
+        nbytes = 4 * ((r + 1) + n_col + n_tiles * t + c + r * t)
+        return nbytes, 3 * n_tiles * t
+    nbytes = 4 * ((r + 1) + n_col + n_tiles * t + c + r + r)
+    return nbytes, 2 * n_tiles * t
 
 
-def phase_timing(g, levels, n_iterations, bfs_launches):
-    """Per-launch times on the inputs of each iteration of one traversal."""
+def bff_bytes_ops(m, nnz):
+    """bmv_bff reads every tile whole (dense x): pointers, column indices,
+    tiles, x3 and y once each; a ⊗ and a ⊕ per set bit."""
+    r, c, t = m.n_tile_rows, m.n_tile_cols, m.tile_dim
+    nbytes = 4 * ((r + 1) + m.n_tiles + m.n_tiles * t + c * t + r * t)
+    return nbytes, 2 * nnz
+
+
+def bound_row(nbytes, ops):
+    return {"bytes": nbytes, "ops": ops,
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                  ops / LANE_OPS_PER_S),
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops / LANE_OPS_PER_S else "operations")}
+
+
+def csr_spmv(csr_t):
+    """One cuSPARSE SpMV on the float CSR (``torch.mv``): the yardstick."""
     import torch
-    from repro_torch.core.descriptor import Descriptor
-    from repro_torch.core.operands import BitVector
-    from repro_torch.kernels.bmv import bmv, ref
-
-    gt = g.transposed()
-    m = gt.b2sr
-    csr_t = gt.csr
     with warnings.catch_warnings():     # "sparse CSR support is in beta"
         warnings.simplefilter("ignore", UserWarning)
         spm = torch.sparse_csr_tensor(
             csr_t.row_ptr, csr_t.col_idx, csr_t.values,
             size=(csr_t.n_rows, csr_t.n_cols), check_invariants=False)
+    return lambda x: torch.mv(spm, x)
+
+
+def bfs_timing(gt, levels, n_iterations, spmv):
+    """Push, pull and count per launch on each BFS iteration's inputs."""
+    import torch
+    from repro_torch.core.descriptor import Descriptor
+    from repro_torch.core.operands import BitVector
+    from repro_torch.kernels.bmv import bmv, ref
+
+    m = gt.b2sr
     gc = gt.with_backend("csr")
-    rows = {k: [] for k in KERNELS}
+    rows = {k: [] for k in ("bmv_bbb_push", "bmv_bbb_pull", "bmv_bbf")}
     csr_row_ms = []
-    for it in range(n_iterations):
-        front = gt.pack((levels == it).to(torch.int32))
-        visited = gt.pack_rows(((levels >= 0) & (levels <= it)).to(torch.int32))
-        xf = BitVector.from_words(front, gt.n_cols, gt.tile_dim)
+    for it, xf in enumerate(frontiers(gt, levels, n_iterations)):
+        front = xf.words
+        visited = gt.pack_rows(((levels >= 0) & (levels <= it)).to(
+            torch.int32))
         vis = BitVector.from_words(visited, gt.n_rows, gt.tile_dim)
         x_dense = xf.unpack(torch.float32)
-        lib_ms = event_ms(lambda: torch.mv(spm, x_dense))
+        lib_ms = event_ms(lambda: spmv(x_dense))
         csr_row_ms.append(event_ms(lambda: gc.mxv(
             xf, desc=Descriptor(mask=vis, complement=True))))
-        for k in KERNELS:
+        calls = {}
+        for k in ("bmv_bbb_push", "bmv_bbb_pull"):
             args, kw = kernel_args(m, front, visited, True)
-            nbytes, ops = needed_bytes_ops(m, front, visited, k)
-            rows[k].append({
-                "it": it,
-                "ms": event_ms(lambda: getattr(bmv, k)(*args, **kw)),
-                "plain_ms": event_ms(lambda: getattr(ref, k)(*args, **kw),
-                                     reps=3),
-                "library_ms": lib_ms,
-                "bytes": nbytes, "ops": ops,
-                "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                      ops / LANE_OPS_PER_S),
-            })
-    emit({"phase": "timing", "ok": True, "per_iteration": rows,
-          "csr_row_ms": csr_row_ms,
-          "graph": {"n": g.n_rows, "nnz": g.nnz, "n_tiles": m.n_tiles,
-                    "n_tile_rows": m.n_tile_rows}})
+            calls[k] = (lambda k=k, args=args, kw=kw:
+                        getattr(bmv, k)(*args, **kw),
+                        lambda k=k, args=args, kw=kw:
+                        getattr(ref, k)(*args, **kw))
+        calls["bmv_bbf"] = (
+            lambda: bmv.bmv_bbf(*b2sr_args(m), front, t=m.tile_dim),
+            lambda: ref.bmv_bbf(*b2sr_args(m), front, t=m.tile_dim))
+        for k, (kern, plain) in calls.items():
+            rows[k].append({"it": it, "ms": event_ms(kern),
+                            "plain_ms": event_ms(plain, reps=PLAIN_REPS),
+                            "library_ms": lib_ms,
+                            **bound_row(*needed_bytes_ops(m, front, visited,
+                                                          k))})
+    return rows, statistics.fmean(csr_row_ms)
 
-    def mean(k, key):
-        return statistics.fmean(r[key] for r in rows[k])
+
+def heavy_rows(gt, x):
+    """bmv_bff (sum mode) on one tile-row alone, for the row with the most
+    tiles and the row with the most set bits: the floor that one warp per
+    tile-row puts under every launch."""
+    import torch
+    from repro_torch.kernels.bmv import bmv
+
+    m = gt.b2sr
+    t = m.tile_dim
+    ptr = m.tile_row_ptr
+    n_tc = m.n_tile_cols
+    x3 = torch.cat([x, x.new_zeros(n_tc * t - x.numel())]).view(n_tc, t)
+    deg = gt.degrees()
+    bits = torch.cat([deg, deg.new_zeros(m.n_tile_rows * t - deg.numel())])
+    rows = {"most_tiles": int((ptr[1:] - ptr[:-1]).argmax()),
+            "most_set_bits": int(bits.view(-1, t).sum(1).argmax())}
+    out = {}
+    for key, r in rows.items():
+        one = ptr[r:r + 2]
+        out[key] = {
+            "row": r, "tiles": int(one[1] - one[0]),
+            "set_bits": int(bits[r * t:(r + 1) * t].sum()),
+            "ms": event_ms(lambda: bmv.bmv_bff(
+                one, m.tile_col_idx, m.bit_tiles, x3, t=t, mode="sum"))}
+    return out
+
+
+def bff_timing(g, sources, spmv):
+    """bmv_bff per launch on each iteration's input of one PageRank
+    (sum), one SSSP (min_plus) and one CC (min_plus, a_value 0); the
+    plain version on the first input of each."""
+    import torch
+    from repro_torch.algorithms import connected_components, pagerank, sssp
+    from repro_torch.kernels.bmv import bmv, ref
+
+    gt = g.transposed()
+    m = gt.b2sr
+    t = m.tile_dim
+    n_tc = m.n_tile_cols
+    safe_deg = torch.where(g.degrees() == 0, 1.0, g.degrees())
+    pr_n = pagerank(g).n_iterations
+    sssp_n = sssp(g, sources[0]).n_iterations
+    cc_n = connected_components(g, direction="push").n_iterations
+    inputs = {
+        "pagerank": ("sum", 1.0, [pagerank(g, max_iters=k).ranks / safe_deg
+                                  for k in range(pr_n)]),
+        "sssp": ("min_plus", 1.0, [sssp(g, sources[0],
+                                        max_iters=k).distances
+                                   for k in range(sssp_n)]),
+        "cc": ("min_plus", 0.0, [connected_components(
+            g, max_iters=k, direction="push").labels.float()
+            for k in range(cc_n)]),
+    }
+    bound = bound_row(*bff_bytes_ops(m, g.nnz))
+    out = {"heavy_rows": heavy_rows(gt, inputs["pagerank"][2][0])}
+    for name, (mode, a_value, xs) in inputs.items():
+        ident = float("inf") if mode == "min_plus" else 0.0
+        x3s = [torch.cat([x, x.new_full((n_tc * t - x.numel(),), ident)]
+                         ).view(n_tc, t) for x in xs]
+        args = (*b2sr_args(m),)
+        ms = [event_ms(lambda x3=x3: bmv.bmv_bff(*args, x3, t=t, mode=mode,
+                                                 a_value=a_value))
+              for x3 in x3s]
+        out[name] = {
+            "mode": mode, "a_value": a_value, "ms": ms,
+            "median_ms": statistics.median(ms),
+            "plain_ms": event_ms(lambda: ref.bmv_bff(
+                *args, x3s[0], t=t, mode=mode, a_value=a_value),
+                reps=PLAIN_REPS),
+            "library_ms": (statistics.median(event_ms(lambda x=x: spmv(x))
+                                             for x in xs)
+                           if mode == "sum" else None),
+            **bound}
+    return out
+
+
+def phase_timing(g, bfs_first, sources, launches):
+    """Per-launch times on the main path's inputs; the kernel table."""
+    gt = g.transposed()
+    m = gt.b2sr
+    spmv = csr_spmv(gt.csr)
+    bfs_rows, csr_ms = bfs_timing(gt, bfs_first.levels,
+                                  bfs_first.n_iterations, spmv)
+    bff = bff_timing(g, sources, spmv)
+    b2sr_bytes = 4 * (m.tile_row_ptr.numel() + m.n_tiles
+                      + m.n_tiles * m.tile_dim)
+    csr_bytes = 4 * (gt.csr.row_ptr.numel() + 2 * g.nnz)
+    emit({"phase": "timing", "ok": True, "per_iteration": bfs_rows,
+          "bmv_bff": bff, "csr_row_ms": csr_ms,
+          "graph": {"n": g.n_rows, "nnz": g.nnz, "n_tiles": m.n_tiles,
+                    "n_tile_rows": m.n_tile_rows,
+                    "b2sr_bytes": b2sr_bytes, "csr_bytes": csr_bytes}})
+
+    def mean(rows, key):
+        return statistics.fmean(r[key] for r in rows)
 
     table = []
-    for k, where in KERNELS.items():
-        bound_bytes = mean(k, "bytes") / HBM_BYTES_PER_S
-        bound_ops = mean(k, "ops") / LANE_OPS_PER_S
+    for k in ("bmv_bbb_push", "bmv_bbb_pull", "bmv_bbf"):
+        rows = bfs_rows[k]
+        b_bytes = mean(rows, "bytes") / HBM_BYTES_PER_S
+        b_ops = mean(rows, "ops") / LANE_OPS_PER_S
         table.append({
-            "name": k, "route": "cuda",
-            "source": "src/repro_torch/kernels/bmv/bmv.cu",
-            "replaces": where, "launches": bfs_launches[k],
-            "ms": mean(k, "ms"), "plain_ms": mean(k, "plain_ms"),
-            "bound_ms": mean(k, "bound_ms"),
-            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-            "library_ms": mean(k, "library_ms")})
-    return table, statistics.fmean(csr_row_ms)
+            "name": k, "ms": mean(rows, "ms"),
+            "plain_ms": mean(rows, "plain_ms"),
+            "bound_ms": mean(rows, "bound_ms"),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "library_ms": mean(rows, "library_ms"),
+            "inputs": "BFS push traversal, mean over iterations"})
+    pr = bff["pagerank"]
+    table.append({
+        "name": "bmv_bff", "ms": pr["median_ms"], "plain_ms": pr["plain_ms"],
+        "bound_ms": pr["bound_ms"], "bound_by": pr["bound_by"],
+        "library_ms": pr["library_ms"],
+        "ms_by_input": {k: v["median_ms"] for k, v in bff.items()
+                        if k != "heavy_rows"},
+        "inputs": "PageRank iterations (sum mode), median"})
+    for row in table:
+        row.update(route="cuda", source="src/repro_torch/kernels/bmv/bmv.cu",
+                   replaces=KERNELS[row["name"]],
+                   launches=launches[row["name"]])
+    order = list(KERNELS)
+    return sorted(table, key=lambda r: order.index(r["name"])), csr_ms
 
 
 def phase_profile(g, source):
-    """Device busy time of one BFS per direction (torch.profiler, CUPTI):
-    kernel time by name, and the share of the wall time the card idled."""
+    """Device busy time of one run per algorithm and BFS direction
+    (torch.profiler, CUPTI): kernel time by name, and the share of the
+    wall time the card idled."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.algorithms import bfs
+    from repro_torch.algorithms import (bfs, connected_components, pagerank,
+                                        sssp)
 
+    runs = {f"bfs/{d}": (lambda d=d: bfs(g, source, direction=d))
+            for d in DIRECTIONS}
+    runs["sssp"] = lambda: sssp(g, source)
+    runs["pagerank"] = lambda: pagerank(g)
+    runs["cc/auto"] = lambda: connected_components(g, direction="auto")
     out = {}
-    for d in DIRECTIONS:
+    for name, fn in runs.items():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _, wall = sync_time(lambda: bfs(g, source, direction=d))
+            _, wall = sync_time(fn)
         busy = {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 # drop the parameter list, keep the kernel and its functor
-                name = e.name.replace("(anonymous namespace)::", "")
-                name = name.split("(")[0][:120]
-                busy[name] = (busy.get(name, 0.0)
-                              + e.time_range.elapsed_us() / 1e3)
+                kname = e.name.replace("(anonymous namespace)::", "")
+                kname = kname.split("(")[0][:120]
+                busy[kname] = (busy.get(kname, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
         total = sum(busy.values())
-        out[d] = {"wall_ms": 1e3 * wall,
-                  "device_busy_ms": total if busy else None,
-                  "idle_share": 1 - total / (1e3 * wall) if busy else None,
-                  "top": sorted(busy.items(), key=lambda kv: -kv[1])[:6]}
-    emit({"phase": "profile", "ok": True, "source": source,
-          "by_direction": out})
+        out[name] = {"wall_ms": 1e3 * wall,
+                     "device_busy_ms": total if busy else None,
+                     "idle_share": 1 - total / (1e3 * wall) if busy else None,
+                     "top": sorted(busy.items(), key=lambda kv: -kv[1])[:6]}
+    emit({"phase": "profile", "ok": True, "source": source, "runs": out})
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--scale", type=int, default=SCALE,
+                        help="R-MAT scale (n = 2**scale); default 21")
+    scale = parser.parse_args().scale
     try:
         import torch
     except ImportError:
@@ -358,6 +784,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script measures the "
               "port on a GPU and has no CPU mode", file=sys.stderr)
         return 1
+    import scipy.sparse as sp
     from repro_torch.core.graphblas import GraphMatrix
     from repro_torch.data.graphs import rmat_graph
     from repro_torch.kernels import common
@@ -371,16 +798,16 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]})
 
     rng = np.random.default_rng(SEED)
-    n = 1 << SCALE
+    n = 1 << scale
     t0 = time.perf_counter()
     rows, cols = rmat_graph(n, avg_degree=2 * EDGEFACTOR, seed=SEED)
     gen_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     g, build_s = sync_time(lambda: GraphMatrix.from_coo(
-        rows, cols, n, n, TILE_DIM, backend="b2sr_cuda"))
+        rows, cols, n, n, TILE_DIM, backend="b2sr_cuda", device=DEVICE))
     ptr = g.b2sr.tile_row_ptr
-    emit({"phase": "graph", "ok": True, "n": n, "directed_edges": len(rows),
-          "n_tiles": g.b2sr.n_tiles,
+    emit({"phase": "graph", "ok": True, "scale": scale, "n": n,
+          "directed_edges": len(rows), "n_tiles": g.b2sr.n_tiles,
           "max_tiles_per_row": int((ptr[1:] - ptr[:-1]).max()),
           "generate_s": gen_s,
           "from_coo_s": build_s,
@@ -388,13 +815,24 @@ def main() -> int:
 
     max_err = phase_kernels(g, rng)
 
+    adj = sp.csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(n, n))
     deg = np.bincount(rows, minlength=n)
     sources = [int(s) for s in np.random.default_rng(SEED + 1).choice(
         np.flatnonzero(deg), N_SOURCES, replace=False)]
-    first, launches = phase_bfs(g, rows, cols, deg, sources)
+    want = scipy_levels(adj, sources)
+    first, launches = phase_bfs(g, deg, sources, want)
+    bff_launches = 0
+    _, ls = phase_sssp(g, sources, want)
+    bff_launches += ls["bmv_bff"]
+    _, ls = phase_pagerank(g, adj, sources[0])
+    bff_launches += ls["bmv_bff"]
+    _, ls = phase_cc(g, adj)
+    bff_launches += ls["bmv_bff"]
+    ls = phase_mxv(g, first.levels, first.n_iterations, rng)
+    launches.update(bmv_bff=bff_launches + ls["bmv_bff"],
+                    bmv_bbf=ls["bmv_bbf"])
 
-    table, csr_ms = phase_timing(g, first.levels, first.n_iterations,
-                                 launches)
+    table, csr_ms = phase_timing(g, first, sources, launches)
     for row in table:
         row["max_abs_err"] = max_err[row["name"]]
         row["csr_row_ms"] = csr_ms

@@ -8,6 +8,8 @@ over edges.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
 import torch
 
 from repro_torch.core.semiring import ARITHMETIC, BOOLEAN, Semiring
@@ -40,10 +42,16 @@ def from_coo(rows, cols, n_rows: int, n_cols: int,
                      n_rows=n_rows, n_cols=n_cols)
 
 
-def mxv(m: CSRMatrix, x: torch.Tensor,
-        semiring: Semiring = ARITHMETIC) -> torch.Tensor:
-    """y_i = ⊕_j A_ij ⊗ x_j over edges (segment reduce by destination row)."""
-    prod = semiring.mul(m.values.to(x.dtype), x[m.col_idx.long()])
+def mxv(m: CSRMatrix, x: torch.Tensor, semiring: Semiring = ARITHMETIC,
+        a_value: Optional[float] = None) -> torch.Tensor:
+    """y_i = ⊕_j A_ij ⊗ x_j over edges (segment reduce by destination row).
+
+    ``a_value`` overrides the stored edge values with a uniform value (parity
+    with the binary-matrix B2SR path, whose edges carry no values).
+    """
+    vals = (m.values.to(x.dtype) if a_value is None
+            else torch.full_like(m.values, a_value, dtype=x.dtype))
+    prod = semiring.mul(vals, x[m.col_idx.long()])
     if semiring is BOOLEAN:
         prod = prod.to(torch.int32)
     y = torch.full((m.n_rows,), semiring.add_identity, dtype=prod.dtype,
@@ -51,3 +59,12 @@ def mxv(m: CSRMatrix, x: torch.Tensor,
     y = y.scatter_reduce(0, m.row_idx.long(), prod, semiring.reduce,
                          include_self=True)
     return y > 0 if semiring is BOOLEAN else y
+
+
+def mxv_masked(m: CSRMatrix, x: torch.Tensor, mask: torch.Tensor,
+               semiring: Semiring = ARITHMETIC, complement: bool = False,
+               a_value: Optional[float] = None) -> torch.Tensor:
+    """Masked mxv: output elements where mask (or ~mask) is 0 are ⊕-identity."""
+    y = mxv(m, x, semiring, a_value)
+    keep = (mask == 0) if complement else (mask != 0)
+    return torch.where(keep, y, semiring.identity_for(y.dtype, y.device))

@@ -11,8 +11,19 @@ import torch
 
 from repro_torch.core import csr as csr_mod
 from repro_torch.core.b2sr import pack_bitvector, unpack_bitvector
-from repro_torch.core.dispatch import BOTH, pending, register
+from repro_torch.core.dispatch import BOTH, apply_output_mask, register
 from repro_torch.core.semiring import ARITHMETIC
+
+
+@register("mxv", "dense", "full", "csr", bucketed=BOTH, masked=False)
+def _mxv_dense(g, x, call):
+    return csr_mod.mxv(g.csr, x, call.semiring, call.a_value)
+
+
+@register("mxv", "dense", "full", "csr", bucketed=BOTH, masked=True)
+def _mxv_dense_masked(g, x, call):
+    return csr_mod.mxv_masked(g.csr, x, call.mask, call.semiring,
+                              call.complement, call.a_value)
 
 
 @register("mxv", "bitvec", "bin", "csr", bucketed=BOTH)
@@ -32,7 +43,14 @@ def _mxv_pull(g, xw, call):
     return _mxv_bitvec(g, xw, call)
 
 
-pending("mxv", "dense", "full", "csr",
-        "csr.mxv rows, ROADMAP Queue 1 item 4")
-pending("mxv", "bitvec", "full", "csr",
-        "count rows, ROADMAP Queue 1 item 4")
+@register("mxv", "bitvec", "full", "csr", bucketed=BOTH, masked=False)
+def _mxv_count(g, xw, call):
+    x = unpack_bitvector(xw, g.tile_dim, g.n_cols, torch.float32)
+    return csr_mod.mxv(g.csr, x, ARITHMETIC).to(call.out_dtype)
+
+
+@register("mxv", "bitvec", "full", "csr", bucketed=BOTH, masked=True)
+def _mxv_count_masked(g, xw, call):
+    y = _mxv_count(g, xw, call)
+    return apply_output_mask(y, call.mask, call.complement,
+                             torch.zeros((), dtype=call.out_dtype))

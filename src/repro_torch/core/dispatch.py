@@ -19,9 +19,6 @@ keyed by the full Table II/III coordinate (the reference's key):
 Implementations have the signature ``fn(g, rhs, call)`` and return the
 raw result (packed words or dense values). Backend modules are imported
 on the first lookup for that backend.
-
-Rows the port has not reached yet are declared with :func:`pending`, so
-resolving them names the ROADMAP item that will add them.
 """
 
 from __future__ import annotations
@@ -45,7 +42,6 @@ RHS_KINDS = ("dense", "bitvec")
 OUT_KINDS = ("bin", "full")
 
 _REGISTRY: Dict[Key, Callable] = {}
-_PENDING: Dict[Tuple[str, str, str, str], str] = {}
 
 _BACKEND_MODULES: Dict[str, Tuple[str, ...]] = {
     "b2sr": ("repro_torch.core.ops",),
@@ -68,6 +64,8 @@ class OpCall:
     mask: Any = None
     complement: bool = False
     row_chunk: Optional[int] = None
+    a_value: float = 1.0
+    out_dtype: torch.dtype = torch.float32
 
 
 BOTH = (False, True)
@@ -100,11 +98,6 @@ def register(op: str, rhs: str, out: str, backend: str,
     return deco
 
 
-def pending(op: str, rhs: str, out: str, backend: str, where: str) -> None:
-    """Declare a reference row that this backend does not have yet."""
-    _PENDING[(op, rhs, out, backend)] = where
-
-
 def _ensure_backend(backend: str) -> None:
     if backend in _LOADED:
         return
@@ -121,11 +114,6 @@ def resolve(op: str, rhs: str, out: str, backend: str, bucketed: bool,
     fn = _REGISTRY.get(key)
     if fn is not None:
         return fn
-    where = _PENDING.get((op, rhs, out, backend))
-    if where is not None:
-        raise NotImplementedError(
-            f"op={op} rhs={rhs} out={out} is not ported to backend={backend} "
-            f"yet: {where}")
     raise NotImplementedError(
         f"no kernel registered for op={op} rhs={rhs} out={out} "
         f"backend={backend} bucketed={bucketed} masked={masked} "
@@ -168,4 +156,4 @@ def apply_output_mask(y: torch.Tensor, mask: torch.Tensor, complement: bool,
                       identity) -> torch.Tensor:
     """§V mask-at-store for dense outputs: masked-out entries → identity."""
     keep = (mask == 0) if complement else (mask != 0)
-    return torch.where(keep, y, identity)
+    return torch.where(keep, y, torch.as_tensor(identity, device=y.device))

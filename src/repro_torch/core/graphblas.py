@@ -1,6 +1,6 @@
 """High-level GraphBLAS matrix object: the generic operation API.
 
-The torch twin of ``repro.core.graphblas.GraphMatrix`` for the BFS slice.
+The torch twin of ``repro.core.graphblas.GraphMatrix`` for the mxv rows.
 A ``GraphMatrix`` holds, for each stored orientation (the matrix and its
 transpose), the B2SR arrays and the float CSR baseline twin, all on one
 device. ``mxv`` resolves the Table II row from the operand type and the
@@ -171,20 +171,31 @@ class GraphMatrix:
 
     # -- the generic operation ----------------------------------------------
     def mxv(self, x, semiring: Optional[Semiring] = None,
-            desc: Optional[Descriptor] = None, *, out=None, mask=_UNSET,
-            complement=_UNSET, row_chunk=_UNSET):
+            desc: Optional[Descriptor] = None, *, a_value: float = 1.0,
+            out_dtype=None, out=None, mask=_UNSET, complement=_UNSET,
+            row_chunk=_UNSET):
         """y = A ⊕.⊗ x — the generic matrix-vector product (paper Table II).
 
-        A ``BitVector`` ``x`` on the boolean semiring is the bin·bin→bin
-        row (the BFS step) and returns a ``BitVector``. ``semiring``
-        defaults to boolean for packed operands and arithmetic for dense
-        ones. ``desc`` carries mask / complement / transpose / replace /
-        row_chunk / direction.
+        The table row is resolved from the operand type and the semiring:
+
+          dense ``x``           bin·full→full (any semiring: SSSP,
+                                PageRank, CC); ``a_value`` is the uniform
+                                edge value
+          ``BitVector`` x,      bin·bin→bin, the BFS step; returns a
+          boolean semiring      ``BitVector``
+          ``BitVector`` x,      bin·bin→full, neighbour counts in
+          other semiring        ``out_dtype`` (default float32)
+
+        ``semiring`` defaults to boolean for packed operands and arithmetic
+        for dense ones. ``desc`` carries mask / complement / transpose /
+        replace / row_chunk / direction; with ``desc.replace=False`` the
+        masked-out entries are taken from ``out``.
         """
         desc = descriptor_mod.merge_sugar(desc, mask, complement, row_chunk)
         if desc.transpose_a:
             return self.transposed().mxv(
-                x, semiring, desc.replace_with(transpose_a=False), out=out)
+                x, semiring, desc.replace_with(transpose_a=False),
+                a_value=a_value, out_dtype=out_dtype, out=out)
         kind = operand_kind(x)
         if kind not in ("dense", "bitvec"):
             raise TypeError(f"mxv right-hand side must be a dense vector or "
@@ -197,17 +208,18 @@ class GraphMatrix:
         out_kind = dispatch.out_kind_for(semiring, kind)
         call = OpCall(
             semiring=semiring, mask=self._norm_mask(desc.mask, out_kind),
-            complement=desc.complement, row_chunk=desc.row_chunk)
+            complement=desc.complement, row_chunk=desc.row_chunk,
+            a_value=a_value,
+            out_dtype=out_dtype if out_dtype is not None else torch.float32)
         op = self._direction_op("mxv", desc, kind, "bitvec", out_kind,
                                 call.mask is not None)
         impl = dispatch.resolve(op, kind, out_kind, self.backend,
                                 self._bucketed(desc.row_chunk),
                                 call.mask is not None)
         y = impl(self, x.words if kind == "bitvec" else x, call)
-        # only packed rows are registered in this slice: resolve() raises
-        # for the dense and count rows before this point
-        y = BitVector.from_words(y, self.n_rows, self.tile_dim)
-        return self._merge_unreplaced(y, desc, out, call)
+        if out_kind == "bin":
+            y = BitVector.from_words(y, self.n_rows, self.tile_dim)
+        return self._merge_unreplaced(y, desc, out, out_kind, call)
 
     def vxm(self, x, semiring: Optional[Semiring] = None,
             desc: Optional[Descriptor] = None, *, mask=_UNSET,
@@ -237,26 +249,35 @@ class GraphMatrix:
         return base + "_pull"
 
     def _norm_mask(self, mask, out_kind: str):
-        """Validate the descriptor mask and strip it to the row's raw form
-        (packed words for the packed rows, the only rows of this slice)."""
-        if mask is None or out_kind != "bin":
-            return mask
-        if not isinstance(mask, BitVector):
-            raise TypeError("packed mxv takes a BitVector mask")
-        check_operand(mask, self.tile_dim, self.n_rows, "mask")
-        return mask.words
+        """Validate the descriptor mask and strip it to the row's raw form:
+        packed words for packed outputs; a dense mask for dense outputs (a
+        ``BitVector`` is unpacked to bool)."""
+        if mask is None:
+            return None
+        if out_kind == "bin":
+            if not isinstance(mask, BitVector):
+                raise TypeError("packed mxv takes a BitVector mask")
+            check_operand(mask, self.tile_dim, self.n_rows, "mask")
+            return mask.words
+        if isinstance(mask, BitVector):
+            check_operand(mask, self.tile_dim, self.n_rows, "mask")
+            return mask.unpack(torch.bool)
+        return mask
 
     @staticmethod
-    def _merge_unreplaced(y: BitVector, desc: Descriptor, out,
-                          call: OpCall) -> BitVector:
-        """Apply ``desc.replace=False``: masked-out bits come from ``out``."""
+    def _merge_unreplaced(y, desc: Descriptor, out, out_kind: str,
+                          call: OpCall):
+        """Apply ``desc.replace=False``: masked-out entries come from ``out``."""
         if desc.replace or desc.mask is None:
             return y
         if out is None:
             raise ValueError("desc.replace=False needs the previous output "
                              "(out=) to merge masked-out entries from")
-        m = call.mask if not desc.complement else ~call.mask
-        return y._like((y.words & m) | (out.words & ~m))
+        if out_kind == "bin":
+            m = call.mask if not desc.complement else ~call.mask
+            return y._like((y.words & m) | (out.words & ~m))
+        keep = (call.mask == 0) if desc.complement else (call.mask != 0)
+        return torch.where(keep, y, out)
 
     def degrees(self) -> torch.Tensor:
         """Out-degree vector from the CSR twin (row_ptr diff); memoized."""

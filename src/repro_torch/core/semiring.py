@@ -22,6 +22,9 @@ class Semiring:
     add_identity: float    # identity of ⊕ (cast to the vector dtype)
     reduce: str
 
+    def identity_for(self, dtype, device=None) -> torch.Tensor:
+        return torch.tensor(self.add_identity, dtype=dtype, device=device)
+
 
 # Boolean {0,1} — BFS, diameter, MIS, GC
 BOOLEAN = Semiring("boolean", torch.logical_or, torch.logical_and, False,

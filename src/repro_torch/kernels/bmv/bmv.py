@@ -1,8 +1,12 @@
-"""Launchers for the boolean B2SR mxv CUDA kernels in ``bmv.cu``.
+"""Launchers for the B2SR mxv CUDA kernels in ``bmv.cu``.
 
-``bmv_bbb_push`` replaces ``repro.kernels.bmv.bmv.bmv_bin_bin_bin_pallas``
-and ``bmv_bbb_pull`` replaces ``bmv_bin_bin_bin_pull_pallas``. Both take
-the B2SR CSR-over-tiles arrays as they are (no ELL padding, one launch).
+  bmv_bbb_push  replaces ``repro.kernels.bmv.bmv.bmv_bin_bin_bin_pallas``
+  bmv_bbb_pull  replaces ``bmv_bin_bin_bin_pull_pallas``
+  bmv_bff       replaces ``bmv_bin_full_full_pallas`` (semiring mxv)
+  bmv_bbf       replaces ``bmv_bin_bin_full_pallas`` (count mxv)
+
+All take the B2SR CSR-over-tiles arrays as they are (no ELL padding, one
+launch).
 
 A CUDA tensor goes to the kernel: a build or launch failure raises. A
 CPU tensor goes to the plain version in ``ref.py``. Each wrapper counts
@@ -23,11 +27,21 @@ from repro_torch.kernels import common
 from repro_torch.kernels.bmv import ref
 
 SOURCE = Path(__file__).with_name("bmv.cu")
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_BBB_ARGS = [_PTR] * 6 + [_INT] * 3 + [_PTR]
+_BFF_ARGS = [_PTR] * 5 + [_INT] * 3 + [_FLOAT] * 2 + [_PTR]
+_BBF_ARGS = [_PTR] * 5 + [_INT] * 2 + [_PTR]
+#: ``mode`` argument of the ``bmv_bff`` kernel
+BFF_MODE_IDS = {"sum": 0, "min_plus": 1, "max_times": 2}
 
 
-def _check(tile_row_ptr, tile_col_idx, bit_tiles, x, mask, t: int) -> None:
-    """Validate what the kernels take: devices, dtypes, shapes, layout."""
+def _check(tile_row_ptr, tile_col_idx, bit_tiles, x, mask, t: int,
+           x_dtype: torch.dtype = WORD) -> None:
+    """Validate what the kernels take: devices, dtypes, shapes, layout.
+
+    ``x`` is packed words (int32[C]) or, with ``x_dtype=torch.float32``,
+    the dense tiles ``x3`` float32[C, t].
+    """
     named = {"tile_row_ptr": tile_row_ptr, "tile_col_idx": tile_col_idx,
              "bit_tiles": bit_tiles, "x": x}
     if mask is not None:
@@ -35,8 +49,9 @@ def _check(tile_row_ptr, tile_col_idx, bit_tiles, x, mask, t: int) -> None:
     for name, a in named.items():
         if a.device != x.device:
             raise ValueError(f"{name} is on {a.device}, x on {x.device}")
-        if a.dtype != WORD:
-            raise TypeError(f"{name} must be int32, got {a.dtype}")
+        want = x_dtype if name == "x" else WORD
+        if a.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {a.dtype}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     n_rows = tile_row_ptr.shape[0] - 1
@@ -45,30 +60,36 @@ def _check(tile_row_ptr, tile_col_idx, bit_tiles, x, mask, t: int) -> None:
     if bit_tiles.dim() != 2 or bit_tiles.shape != (tile_col_idx.shape[0], t):
         raise ValueError(f"bit_tiles shape {tuple(bit_tiles.shape)} != "
                          f"({tile_col_idx.shape[0]}, {t})")
+    if x_dtype != WORD and (x.dim() != 2 or x.shape[1] != t):
+        raise ValueError(f"x3 shape {tuple(x.shape)} is not [C, {t}]")
     if mask is not None and mask.shape != (n_rows,):
         raise ValueError(f"mask shape {tuple(mask.shape)} != ({n_rows},)")
     if bit_tiles.numel() and bit_tiles.data_ptr() % 16:
         raise ValueError("bit_tiles must be 16-byte aligned (vector loads)")
 
 
+def _call(name: str, argtypes, x: torch.Tensor, *args) -> None:
+    """Launch ``name`` on ``x``'s device and current stream; raise on error."""
+    lib = common.load_library(SOURCE)
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    with torch.cuda.device(x.device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    common.check_launch(lib, err, name)
+
+
 def _launch(name: str, tile_row_ptr, tile_col_idx, bit_tiles, x, mask, t: int,
             complement: bool) -> Optional[torch.Tensor]:
-    """Launch kernel ``name``; returns ``None`` when there is no row."""
+    """Launch BFS kernel ``name``; returns ``None`` when there is no row."""
     _check(tile_row_ptr, tile_col_idx, bit_tiles, x, mask, t)
     n_rows = tile_row_ptr.shape[0] - 1
     if n_rows == 0:
         return None
     out = torch.empty(n_rows, dtype=WORD, device=x.device)
-    lib = common.load_library(SOURCE)
-    fn = getattr(lib, name)
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    with torch.cuda.device(x.device):
-        err = fn(tile_row_ptr.data_ptr(), tile_col_idx.data_ptr(),
-                 bit_tiles.data_ptr(), x.data_ptr(),
-                 None if mask is None else mask.data_ptr(), out.data_ptr(),
-                 n_rows, t, int(complement),
-                 torch.cuda.current_stream().cuda_stream)
-    common.check_launch(lib, err, name)
+    _call(name, _BBB_ARGS, x, tile_row_ptr.data_ptr(),
+          tile_col_idx.data_ptr(), bit_tiles.data_ptr(), x.data_ptr(),
+          None if mask is None else mask.data_ptr(), out.data_ptr(), n_rows,
+          t, int(complement))
     return out
 
 
@@ -108,5 +129,54 @@ def bmv_bbb_pull(tile_row_ptr: torch.Tensor, tile_col_idx: torch.Tensor,
     return out
 
 
+def bmv_bff(tile_row_ptr: torch.Tensor, tile_col_idx: torch.Tensor,
+            bit_tiles: torch.Tensor, x3: torch.Tensor, *, t: int, mode: str,
+            a_value: float = 1.0) -> torch.Tensor:
+    """Semiring mxv over the dense tiles ``x3`` [C, t]: float32[R * t].
+
+    ``y[i] = ⊕_j (A_ij ? a_value ⊗ x_j : ⊕-identity)`` with ``mode`` one of
+    ``sum`` (arithmetic), ``min_plus``, ``max_times``; rows without a set
+    bit hold the identity. The kernel takes float32 only.
+    """
+    if mode not in BFF_MODE_IDS:
+        raise ValueError(f"mode must be one of {tuple(BFF_MODE_IDS)}, "
+                         f"got {mode!r}")
+    if not x3.is_cuda:
+        return ref.bmv_bff(tile_row_ptr, tile_col_idx, bit_tiles, x3, t=t,
+                           mode=mode, a_value=a_value)
+    _check(tile_row_ptr, tile_col_idx, bit_tiles, x3, None, t,
+           x_dtype=torch.float32)
+    n_rows = tile_row_ptr.shape[0] - 1
+    out = torch.empty(n_rows * t, dtype=torch.float32, device=x3.device)
+    if n_rows == 0:
+        return out
+    _call("bmv_bff", _BFF_ARGS, x3, tile_row_ptr.data_ptr(),
+          tile_col_idx.data_ptr(), bit_tiles.data_ptr(), x3.data_ptr(),
+          out.data_ptr(), n_rows, t, BFF_MODE_IDS[mode], float(a_value),
+          ref.BFF_MODES[mode][0])
+    bmv_bff.launches += 1
+    return out
+
+
+def bmv_bbf(tile_row_ptr: torch.Tensor, tile_col_idx: torch.Tensor,
+            bit_tiles: torch.Tensor, x: torch.Tensor, *,
+            t: int) -> torch.Tensor:
+    """Count mxv: ``int32[R * t]``, ``Σ_k popcount(tile_k[r] & x[col_k])``."""
+    if not x.is_cuda:
+        return ref.bmv_bbf(tile_row_ptr, tile_col_idx, bit_tiles, x, t=t)
+    _check(tile_row_ptr, tile_col_idx, bit_tiles, x, None, t)
+    n_rows = tile_row_ptr.shape[0] - 1
+    out = torch.empty(n_rows * t, dtype=torch.int32, device=x.device)
+    if n_rows == 0:
+        return out
+    _call("bmv_bbf", _BBF_ARGS, x, tile_row_ptr.data_ptr(),
+          tile_col_idx.data_ptr(), bit_tiles.data_ptr(), x.data_ptr(),
+          out.data_ptr(), n_rows, t)
+    bmv_bbf.launches += 1
+    return out
+
+
 bmv_bbb_push.launches = 0
 bmv_bbb_pull.launches = 0
+bmv_bff.launches = 0
+bmv_bbf.launches = 0

@@ -1,15 +1,26 @@
 """Dispatch-registry entries: the ``b2sr_cuda`` mxv rows.
 
-Both kernels walk the CSR-over-tiles arrays of ``g.b2sr`` directly, so
+Every kernel walks the CSR-over-tiles arrays of ``g.b2sr`` directly, so
 one function serves ``bucketed`` True and False (the bucketed slabs were
 a TPU static-shape device) and ``row_chunk`` is ignored, as the
 reference's ``b2sr_pallas`` rows ignore it: the outputs are the same.
+The dense and count rows apply a mask after the kernel, as the
+reference's rows do.
 """
 
 from __future__ import annotations
 
-from repro_torch.core.dispatch import BOTH, pending, register
-from repro_torch.kernels.bmv.bmv import bmv_bbb_pull, bmv_bbb_push
+import torch
+
+from repro_torch.core.dispatch import BOTH, apply_output_mask, register
+from repro_torch.core.ops import bff_setup
+from repro_torch.kernels.bmv.bmv import (bmv_bbb_pull, bmv_bbb_push, bmv_bbf,
+                                         bmv_bff)
+
+#: semiring name -> ``bmv_bff`` mode; the boolean semiring has no kernel
+#: path, as in the reference's ``b2sr_pallas`` row
+_MODE = {"arithmetic": "sum", "min_plus": "min_plus",
+         "max_times": "max_times"}
 
 
 @register("mxv", "bitvec", "bin", "b2sr_cuda", bucketed=BOTH, masked=BOTH)
@@ -28,7 +39,27 @@ def _mxv_pull(g, xw, call):
                         call.mask, t=m.tile_dim, complement=call.complement)
 
 
-pending("mxv", "dense", "full", "b2sr_cuda",
-        "kernel bmv_bin_full_full_pallas, ROADMAP Queue 2 item 3")
-pending("mxv", "bitvec", "full", "b2sr_cuda",
-        "kernel bmv_bin_bin_full_pallas, ROADMAP Queue 2 item 4")
+@register("mxv", "dense", "full", "b2sr_cuda", bucketed=BOTH, masked=BOTH)
+def _mxv_dense(g, x, call):
+    sr = call.semiring
+    if sr.name not in _MODE:
+        raise NotImplementedError(f"kernel path for semiring {sr.name}")
+    m = g.b2sr
+    t = m.tile_dim
+    x3, ident, _ = bff_setup(g.n_cols, t, x, sr, call.a_value)
+    y = bmv_bff(m.tile_row_ptr, m.tile_col_idx, m.bit_tiles, x3, t=t,
+                mode=_MODE[sr.name], a_value=call.a_value)[: g.n_rows]
+    if call.mask is None:
+        return y
+    return apply_output_mask(y, call.mask, call.complement, ident)
+
+
+@register("mxv", "bitvec", "full", "b2sr_cuda", bucketed=BOTH, masked=BOTH)
+def _mxv_count(g, xw, call):
+    m = g.b2sr
+    y = bmv_bbf(m.tile_row_ptr, m.tile_col_idx, m.bit_tiles, xw,
+                t=m.tile_dim)[: g.n_rows].to(call.out_dtype)
+    if call.mask is None:
+        return y
+    return apply_output_mask(y, call.mask, call.complement,
+                             torch.zeros((), dtype=call.out_dtype))

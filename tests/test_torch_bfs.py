@@ -33,6 +33,7 @@ from repro_torch.algorithms.bfs import bfs  # noqa: E402
 from repro_torch.core.descriptor import Descriptor  # noqa: E402
 from repro_torch.core.graphblas import GraphMatrix  # noqa: E402
 from repro_torch.core.operands import BitVector  # noqa: E402
+from repro_torch.core.semiring import BOOLEAN  # noqa: E402
 from repro_torch.core.words import from_numpy_u32, to_numpy_u32  # noqa: E402
 from repro_torch.data import graphs as PG  # noqa: E402
 from repro_torch.kernels.bmv import bmv  # noqa: E402
@@ -135,10 +136,11 @@ def test_registry_covers_reference_packed_rows():
     backend = {"b2sr": "b2sr", "b2sr_pallas": "b2sr_cuda", "csr": "csr"}
     want = {k[:3] + (backend[k[3]],) + k[4:]
             for k in r_dispatch.registered_keys(load_all=True)
-            if k[:3] in (("mxv", "bitvec", "bin"), ("mxv_pull", "bitvec",
-                                                     "bin")) and not k[6]}
+            if k[0] in p_dispatch.OPS and not k[6]}
     got = set(p_dispatch.registered_keys(load_all=True))
     assert want == got
+    for key in want:
+        assert p_dispatch.resolve(*key) is not None
     for op in p_dispatch.OPS:
         flags = {k[5] for k in got if k[0] == op}
         assert flags == ({True} if op in p_dispatch.MASKED_ONLY_OPS
@@ -195,9 +197,10 @@ def test_bitvector_algebra_matches_reference():
 
 
 def test_pending_rows_name_the_roadmap():
+    """Every mxv row is ported; what the reference lacks still raises."""
     g = port_graph(8).with_backend("b2sr_cuda")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        g.mxv(torch.ones(N))
+    with pytest.raises(NotImplementedError, match="boolean"):
+        g.mxv(torch.ones(N) > 0, BOOLEAN)
     with pytest.raises(ValueError, match="pull"):
         g.mxv(BitVector.pack(torch.ones(N), 8, N),
               desc=Descriptor(direction="pull"))
