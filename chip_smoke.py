@@ -7,8 +7,9 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py --scale 16 # a quicker rehearsal
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels`` and
-drives BFS, SSSP, PageRank/PPR, CC and the generic mxv rows through the
-port's entry points. Each phase prints one JSON line; a failed phase
+drives BFS, SSSP, PageRank/PPR, CC, the generic mxv rows, triangle
+counting, boolean SpGEMM and k-hop reachability through the port's entry
+points. Each phase prints one JSON line; a failed phase
 exits non-zero.
 
   1. kernels: each kernel against its plain PyTorch version
@@ -42,14 +43,40 @@ exits non-zero.
      In phases 2-6 the kernels' launch counts are set to 0 just before
      the phase's ``b2sr_cuda`` runs and read just after; a kernel of the
      phase that never launched fails the run.
-  7. timing: per kernel the median time of one launch (CUDA events) on
-     the main path's inputs (each iteration of one run), beside its plain
-     version, the ``csr`` row, one cuSPARSE SpMV call (``torch.mv`` on the
-     float CSR) where that computes the same function, and the bound
-     (bytes over 3.35 TB/s or operations over 67 TFLOP/s); the graph's
-     B2SR and CSR bytes.
-  8. profile: one run per algorithm and BFS direction under
-     ``torch.profiler``: device time by kernel and the card's idle share.
+  7. tc: triangle counting on the same graph: L's split and packing
+     timed, ``triangle_count`` on ``b2sr_cuda`` (the ``bmm_tc`` kernel)
+     and on ``csr`` (sorted-row intersection); the counts must be equal,
+     and ``bmm_tc`` must equal its plain version on L. Prints whether
+     float32, the reference's type, holds the count, and times the
+     kernel, its plain version and the tile-row with the most work alone.
+  8. spgemm: Graph500 R-MAT scale 16 (edgefactor 16, seed 0), tile dim
+     32: ``g.mxm(g)`` and ``g.mxm(g, mask=g, complement=True)`` on
+     ``b2sr_cuda`` (the ``spgemm_bbb`` kernel) and ``csr``: every B2SR
+     array equal, and equal to the kernel's plain version. Times the
+     kernel beside one ``torch.sparse.mm`` of the float CSR by itself
+     (cuSPARSE, the yardstick; the port never calls it on this path) and
+     prints the phase's peak device memory.
+  9. khop: a road grid of side 2048 (n = 4,194,304), tile dim 32:
+     ``khop_reachability(g, 3)`` on ``b2sr_cuda`` and ``csr``; the reach
+     matrices' B2SR arrays and ``n_iterations`` must be equal.
+     In phases 2-9 the kernels' launch counts are set to 0 just before
+     the phase's ``b2sr_cuda`` runs and read just after; a kernel of the
+     phase that never launched fails the run.
+ 10. timing: per kernel of phases 2-6 the median time of one launch (CUDA
+     events) on the main path's inputs (each iteration of one run),
+     beside its plain version, the ``csr`` row, one cuSPARSE SpMV call
+     (``torch.mv`` on the float CSR) where that computes the same
+     function, and the bound (bytes over 3.35 TB/s or operations over
+     67 TFLOP/s); the graph's B2SR and CSR bytes. Phases 7-8 time their
+     own kernels the same way.
+ 11. profile: one run per algorithm and BFS direction, triangle counting
+     and k-hop under ``torch.profiler``: device time by kernel and the
+     card's idle share.
+
+The kernels phase also holds ``bmm_tc`` and ``spgemm_bbb`` against their
+plain versions on the small graphs at every tile dim (SpGEMM with no
+mask, a keep mask and its complement; TC on L and on a masked A·Aᵀ), and
+the triangle counts and A² patterns of those graphs against SciPy.
 
 Then the card's name and power limit, the kernel table as one JSON line,
 and last ``{"ok": true, "device": {...}}``. Without CUDA it exits 1
@@ -65,6 +92,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -86,11 +114,23 @@ RANK_RTOL = 1e-4               # float32 ranks against float64 numpy
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 LANE_OPS_PER_S = 67e12         # H100 SXM 32-bit rate outside the tensor cores
 DEVICE = "cuda"
+SPGEMM_SCALE = 16
+ROAD_SIDE = 2048
+KHOP_K = 3
+#: kernel -> (the TPU kernel it replaces, its source in the port)
 KERNELS = {
-    "bmv_bbb_push": "src/repro/kernels/bmv/bmv.py:96",
-    "bmv_bbb_pull": "src/repro/kernels/bmv/bmv.py:170",
-    "bmv_bff": "src/repro/kernels/bmv/bmv.py:235",
-    "bmv_bbf": "src/repro/kernels/bmv/bmv.py:43",
+    "bmv_bbb_push": ("src/repro/kernels/bmv/bmv.py:96",
+                     "src/repro_torch/kernels/bmv/bmv.cu"),
+    "bmv_bbb_pull": ("src/repro/kernels/bmv/bmv.py:170",
+                     "src/repro_torch/kernels/bmv/bmv.cu"),
+    "bmv_bff": ("src/repro/kernels/bmv/bmv.py:235",
+                "src/repro_torch/kernels/bmv/bmv.cu"),
+    "bmv_bbf": ("src/repro/kernels/bmv/bmv.py:43",
+                "src/repro_torch/kernels/bmv/bmv.cu"),
+    "bmm_tc": ("src/repro/kernels/bmm/bmm.py:70",
+               "src/repro_torch/kernels/bmm/bmm.cu"),
+    "spgemm_bbb": ("src/repro/kernels/spgemm/spgemm.py:96",
+                   "src/repro_torch/kernels/spgemm/spgemm.cu"),
 }
 
 
@@ -132,16 +172,25 @@ def event_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def reset_launches(names):
+def wrapper(name: str):
+    """The wrapper of kernel ``name`` (it carries the launch count)."""
+    from repro_torch.kernels.bmm import bmm
     from repro_torch.kernels.bmv import bmv
+    from repro_torch.kernels.spgemm import spgemm
+    for mod in (bmv, bmm, spgemm):
+        if hasattr(mod, name):
+            return getattr(mod, name)
+    raise KeyError(name)
+
+
+def reset_launches(names):
     for k in names:
-        getattr(bmv, k).launches = 0
+        wrapper(k).launches = 0
 
 
 def read_launches(phase: str, names):
     """The launch counts of ``names``; a kernel that never launched fails."""
-    from repro_torch.kernels.bmv import bmv
-    launches = {k: getattr(bmv, k).launches for k in names}
+    launches = {k: wrapper(k).launches for k in names}
     if not all(launches.values()):
         fail(phase, f"a kernel of the path never launched: {launches}")
     return launches
@@ -250,6 +299,7 @@ def phase_kernels(full_g, rng):
                 n_checks += 1
                 if not ok:
                     bad.append(["bmv_bff", name, m.tile_dim, mode, a_value])
+    n_checks += check_row_products(cases[:-1], rng, max_err, bad)
     emit({"phase": "kernels", "ok": not bad, "checks": n_checks,
           "max_abs_err": max_err,
           "bff_sum_err_over_bound": worst_sum_ratio,
@@ -257,6 +307,273 @@ def phase_kernels(full_g, rng):
     if bad:
         fail("kernels", f"{len(bad)} kernel/plain mismatches")
     return max_err
+
+
+def b2sr_mismatch(got, want) -> int:
+    """0 when every B2SR array and ``nnz`` are equal, else the number of
+    differing parts (shapes included)."""
+    import torch
+    bad = int(got.nnz != want.nnz)
+    for part in ("tile_row_ptr", "tile_col_idx", "bit_tiles"):
+        x, y = getattr(got, part), getattr(want, part)
+        bad += int(x.shape != y.shape or not torch.equal(x, y))
+    return bad
+
+
+def scipy_adj(m):
+    """The SciPy CSR of a B2SR's pattern."""
+    import scipy.sparse as sp
+    from repro_torch.core.b2sr import b2sr_to_coo
+    rows, cols = (x.cpu().numpy() for x in b2sr_to_coo(m))
+    return sp.csr_matrix((np.ones(len(rows)), (rows, cols)),
+                         shape=(m.n_rows, m.n_cols))
+
+
+def check_row_products(cases, rng, max_err, bad) -> int:
+    """bmm_tc and spgemm_bbb against their plain versions, bit for bit,
+    and the triangle counts and A² patterns against SciPy, on the small
+    graphs. Returns the number of checks."""
+    from repro_torch.core.b2sr import coo_to_b2sr
+    from repro_torch.kernels.bmm import bmm, ref as bmm_ref
+    from repro_torch.kernels.spgemm import ref as spgemm_ref, spgemm
+
+    n_checks = 0
+    for name, g in cases:
+        m, t, n = g.b2sr, g.tile_dim, g.n_rows
+        adj = scipy_adj(m)
+        a2 = (adj @ adj).tocoo()
+        sel = rng.random(a2.nnz) < 0.5           # half of A²'s pattern
+        mask = coo_to_b2sr(a2.row[sel], a2.col[sel], n, n, t, DEVICE)
+        for mk, comp in ((None, False), (mask, False), (mask, True)):
+            got = spgemm.spgemm_bbb(m, m, mk, complement=comp)
+            err = b2sr_mismatch(got, spgemm_ref.spgemm_bbb(
+                m, m, mk, complement=comp))
+            if mk is None:                       # SciPy's A² pattern
+                err += b2sr_mismatch(got, coo_to_b2sr(
+                    a2.row, a2.col, n, n, t, DEVICE))
+            max_err["spgemm_bbb"] = max(max_err["spgemm_bbb"], err)
+            n_checks += 1
+            if err:
+                bad.append(["spgemm_bbb", name, t, mk is not None, comp])
+        rows, cols = adj.nonzero()
+        low = rows > cols
+        lower = coo_to_b2sr(rows[low], cols[low], n, n, t, DEVICE)
+        triangles = int(adj.multiply(adj @ adj).sum()) // 6
+        for case, args in (("L", (lower, lower, lower)),
+                           ("A.At<mask>", (m, m, mask))):
+            got = int(bmm.bmm_tc(*args))
+            err = abs(got - int(bmm_ref.bmm_tc(*args)))
+            if case == "L":
+                err += abs(got - triangles)
+            max_err["bmm_tc"] = max(max_err["bmm_tc"], err)
+            n_checks += 1
+            if err:
+                bad.append(["bmm_tc", name, t, case])
+    return n_checks
+
+
+def one_row(m, r: int):
+    """The B2SR of the same shape holding only tile-row ``r`` of ``m``."""
+    import dataclasses
+    ptr = m.tile_row_ptr
+    lo, hi = int(ptr[r]), int(ptr[r + 1])
+    only = ptr.new_zeros(ptr.shape)
+    only[r + 1:] = hi - lo
+    return dataclasses.replace(m, tile_row_ptr=only,
+                               tile_col_idx=m.tile_col_idx[lo:hi],
+                               bit_tiles=m.bit_tiles[lo:hi])
+
+
+def b2sr_bytes(*mats) -> int:
+    """Bytes of the B2SR arrays of ``mats``, each distinct one once."""
+    seen = {id(m): m for m in mats}
+    return sum(4 * (m.tile_row_ptr.numel() + m.n_tiles * (1 + m.tile_dim))
+               for m in seen.values())
+
+
+def phase_tc(g):
+    """Triangle counting on b2sr_cuda (bmm_tc on L) and csr: equal counts,
+    the kernel equal to its plain version on L, and times."""
+    import torch
+    from repro_torch.algorithms import triangle_count
+    from repro_torch.core.b2sr import tile_rows
+    from repro_torch.core.graphblas import LowerTriangle
+    from repro_torch.kernels.bmm import bmm, ref
+
+    t = g.tile_dim
+    lt, split_s = sync_time(lambda: LowerTriangle(g.csr, t, g.n_rows))
+    _, pack_s = sync_time(lambda: lt.b2sr)
+    g.tri_cache = lt
+    gc = g.with_backend("csr")                  # shares the memoized L
+    reset_launches(("bmm_tc",))
+    count, wall = sync_time(lambda: triangle_count(g))
+    _, wall2 = sync_time(lambda: triangle_count(g))
+    launches = read_launches("tc", ("bmm_tc",))
+    _, csr_build_s = sync_time(lambda: lt.csr)
+    count_csr, wall_csr = sync_time(lambda: triangle_count(gc))
+    low = lt.b2sr
+    total, work = bmm.bmm_tc(low, low, low, with_work=True)
+    plain, plain_s = sync_time(lambda: ref.bmm_tc(low, low, low))
+    err = abs(int(total) - int(plain))
+    ms = event_ms(lambda: bmm.bmm_tc(low, low, low), reps=5)
+    ptr = low.tile_row_ptr.long()
+    lens = ptr[1:] - ptr[:-1]
+    probes = torch.zeros_like(lens).index_add_(
+        0, tile_rows(low), lens[low.tile_col_idx.long()])
+    heavy = {}
+    for key, r in (("most_probes", int(probes.argmax())),
+                   ("most_tiles", int(lens.argmax()))):
+        heavy[key] = {"row": r, "tiles": int(lens[r]),
+                      "probes": int(probes[r]),
+                      "ms": event_ms(lambda r=r: bmm.bmm_tc(
+                          low, low, one_row(low, r)), reps=3)}
+    problems = []
+    if count != count_csr:
+        problems.append(f"b2sr_cuda {count} != csr {count_csr}")
+    if err:
+        problems.append(f"bmm_tc {int(total)} != plain {int(plain)}")
+    bound = bound_row(b2sr_bytes(low) + 8, 3 * int(work))
+    emit({"phase": "tc", "ok": not problems, "problems": problems,
+          "triangles": count, "float32_exact": float(np.float32(count))
+          == count, "launches": launches,
+          "lower": {"nnz": low.nnz, "n_tiles": low.n_tiles,
+                    "max_tiles_per_row": int(lens.max()),
+                    "mask_bit_tile_pairs": int(work)},
+          "split_s": split_s, "pack_s": pack_s, "csr_build_s": csr_build_s,
+          "wall_s": {"b2sr_cuda": [wall, wall2], "csr": wall_csr},
+          "kernel_ms": ms, "plain_s": plain_s, "heavy_rows": heavy,
+          **bound})
+    if problems:
+        fail("tc", "; ".join(problems))
+    return {"name": "bmm_tc", "ms": ms, "plain_ms": 1e3 * plain_s,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": None, "csr_row_ms": 1e3 * wall_csr,
+            "launches": launches["bmm_tc"], "max_abs_err": err,
+            "inputs": "L of the R-MAT graph (A = mask = Bᵀ = L); no one "
+                      "PyTorch call computes the masked sum"}
+
+
+def spgemm_ops(a, b) -> int:
+    """ORs the boolean SpGEMM needs: per A tile (I, X), its set bits times
+    the tiles of B's row X."""
+    from repro_torch.core.words import popcount
+    ptr = b.tile_row_ptr.long()
+    lens = (ptr[1:] - ptr[:-1])[a.tile_col_idx.long()]
+    return int((popcount(a.bit_tiles).sum(1).long() * lens).sum())
+
+
+def cusparse_spgemm_ms(csr):
+    """cuSPARSE's SpGEMM (``torch.sparse.mm``) of the float CSR by itself,
+    one call per row chunk of at most ``csr.CHUNK_WEDGES`` wedges (the
+    chunks of the ``csr`` row; one call over all of R-MAT scale 16's A·A
+    fails with CUSPARSE_STATUS_INSUFFICIENT_RESOURCES), summed: the
+    yardstick, which the port never calls on the b2sr_cuda path."""
+    import torch
+    from repro_torch.core import csr as csr_mod
+    spm = csr_mod.to_sparse(csr)
+    wedges = torch.zeros(csr.n_rows, dtype=torch.int64,
+                         device=csr.values.device).index_add_(
+        0, csr.row_idx.long(), csr_mod.row_lengths(csr)[csr.col_idx.long()])
+    chunks = list(csr_mod.work_chunks(wedges))
+    total = 0.0
+    for r0, r1 in chunks:
+        part = csr_mod.to_sparse(csr, slice(r0, r1))
+        total += event_ms(lambda: torch.sparse.mm(part, spm), reps=3)
+    return total, len(chunks)
+
+
+def phase_spgemm():
+    """A² and A²⟨¬A⟩ at R-MAT scale 16 on b2sr_cuda and csr."""
+    import torch
+    from repro_torch.core import csr as csr_mod
+    from repro_torch.core.graphblas import GraphMatrix
+    from repro_torch.data.graphs import rmat_graph
+    from repro_torch.kernels.spgemm import ref, spgemm
+
+    n = 1 << SPGEMM_SCALE
+    rows, cols = rmat_graph(n, avg_degree=2 * EDGEFACTOR, seed=SEED)
+    g = GraphMatrix.from_coo(rows, cols, n, n, TILE_DIM, backend="b2sr_cuda",
+                             device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    cases = {"A2": lambda gg: gg.mxm(gg),
+             "A2_not_A": lambda gg: gg.mxm(gg, mask=gg, complement=True)}
+    res, wall, launches = run_both("spgemm", g, ("spgemm_bbb",), cases)
+    a = g.b2sr
+    problems, err, timing = [], 0, {}
+    for key, (mk, comp) in {"A2": (None, False),
+                            "A2_not_A": (a, True)}.items():
+        got = res["b2sr_cuda", key].b2sr
+        if b2sr_mismatch(got, res["csr", key].b2sr):
+            problems.append(f"{key}: b2sr_cuda != csr")
+        plain, plain_s = sync_time(lambda: ref.spgemm_bbb(
+            a, a, mk, complement=comp))
+        e = b2sr_mismatch(got, plain)
+        err = max(err, e)
+        if e:
+            problems.append(f"{key}: spgemm_bbb != plain")
+        timing[key] = {
+            "nnz": got.nnz, "n_tiles": got.n_tiles,
+            "ms": event_ms(lambda: spgemm.spgemm_bbb(a, a, mk,
+                                                     complement=comp),
+                           reps=5),
+            "plain_ms": 1e3 * plain_s,
+            **bound_row(b2sr_bytes(a, got), spgemm_ops(a, a))}
+    peak = torch.cuda.max_memory_allocated()
+    del res
+    torch.cuda.empty_cache()
+    library_ms, n_chunks = cusparse_spgemm_ms(g.csr)
+    emit({"phase": "spgemm", "ok": not problems, "problems": problems,
+          "scale": SPGEMM_SCALE, "directed_edges": len(rows),
+          "n_tiles": a.n_tiles, "launches": launches,
+          "wall_s": {f"{be}/{k}": wall[be, k] for be in ("b2sr_cuda", "csr")
+                     for k in cases},
+          "kernel": timing, "cusparse_spgemm_ms": library_ms,
+          "cusparse_row_chunks": n_chunks, "peak_device_bytes": peak})
+    if problems:
+        fail("spgemm", "; ".join(problems))
+    row = timing["A2"]
+    return {"name": "spgemm_bbb", "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": library_ms,
+            "csr_row_ms": 1e3 * wall["csr", "A2"],
+            "launches": launches["spgemm_bbb"], "max_abs_err": err,
+            "inputs": f"A·A of R-MAT scale {SPGEMM_SCALE}, no mask"}
+
+
+def phase_khop():
+    """3-hop reachability on a road grid on b2sr_cuda and csr."""
+    from repro_torch.algorithms import khop_reachability
+    from repro_torch.core.graphblas import GraphMatrix
+    from repro_torch.data.graphs import road_graph
+    from repro_torch.kernels.spgemm import ref, spgemm
+
+    n = ROAD_SIDE * ROAD_SIDE
+    rows, cols = road_graph(ROAD_SIDE)
+    g = GraphMatrix.from_coo(rows, cols, n, n, TILE_DIM, backend="b2sr_cuda",
+                             device=DEVICE)
+    res, wall, launches = run_both(
+        "khop", g, ("spgemm_bbb",),
+        {"khop": lambda gg: khop_reachability(gg, KHOP_K)})
+    a, b = res["b2sr_cuda", "khop"], res["csr", "khop"]
+    problems = []
+    if a.n_iterations != b.n_iterations:
+        problems.append(f"n_iterations {a.n_iterations} != csr "
+                        f"{b.n_iterations}")
+    if b2sr_mismatch(a.reach.b2sr, b.reach.b2sr):
+        problems.append("reach != csr")
+    m = g.b2sr                                   # one hop: A²⟨¬A⟩
+    hop_err = b2sr_mismatch(spgemm.spgemm_bbb(m, m, m, complement=True),
+                            ref.spgemm_bbb(m, m, m, complement=True))
+    if hop_err:
+        problems.append("spgemm_bbb != plain on the hop A²<¬A>")
+    emit({"phase": "khop", "ok": not problems, "problems": problems,
+          "side": ROAD_SIDE, "k": KHOP_K, "n": n, "directed_edges": len(rows),
+          "n_iterations": a.n_iterations, "reach_nnz": a.reach.nnz,
+          "reach_tiles": a.reach.b2sr.n_tiles, "launches": launches,
+          "wall_s": {be: wall[be, "khop"] for be in ("b2sr_cuda", "csr")}})
+    if problems:
+        fail("khop", "; ".join(problems))
+    return g, launches, hop_err
 
 
 def scipy_levels(adj, sources):
@@ -728,27 +1045,27 @@ def phase_timing(g, bfs_first, sources, launches):
                         if k != "heavy_rows"},
         "inputs": "PageRank iterations (sum mode), median"})
     for row in table:
-        row.update(route="cuda", source="src/repro_torch/kernels/bmv/bmv.cu",
-                   replaces=KERNELS[row["name"]],
-                   launches=launches[row["name"]])
-    order = list(KERNELS)
-    return sorted(table, key=lambda r: order.index(r["name"])), csr_ms
+        row["launches"] = launches[row["name"]]
+    return table, csr_ms
 
 
-def phase_profile(g, source):
+def phase_profile(g, source, road):
     """Device busy time of one run per algorithm and BFS direction
     (torch.profiler, CUPTI): kernel time by name, and the share of the
     wall time the card idled."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.algorithms import (bfs, connected_components, pagerank,
-                                        sssp)
+    from repro_torch.algorithms import (bfs, connected_components,
+                                        khop_reachability, pagerank, sssp,
+                                        triangle_count)
 
     runs = {f"bfs/{d}": (lambda d=d: bfs(g, source, direction=d))
             for d in DIRECTIONS}
     runs["sssp"] = lambda: sssp(g, source)
     runs["pagerank"] = lambda: pagerank(g)
     runs["cc/auto"] = lambda: connected_components(g, direction="auto")
+    runs["tc"] = lambda: triangle_count(g)
+    runs["khop/road"] = lambda: khop_reachability(road, KHOP_K)
     out = {}
     for name, fn in runs.items():
         with profile(activities=[ProfilerActivity.CPU,
@@ -788,14 +1105,16 @@ def main() -> int:
     from repro_torch.core.graphblas import GraphMatrix
     from repro_torch.data.graphs import rmat_graph
     from repro_torch.kernels import common
-    from repro_torch.kernels.bmv import bmv
 
     t0 = time.perf_counter()
-    common.load_library(bmv.SOURCE)
+    sources = sorted({ROOT / src for _, src in KERNELS.values()})
+    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
+        list(pool.map(common.load_library, sources))
     emit({"phase": "build", "ok": True,
           "seconds": time.perf_counter() - t0,
-          "ptxas": [ln for ln in common.BUILD_LOG.get("bmv", "").splitlines()
-                    if "registers" in ln or "spill" in ln]})
+          "ptxas": {src.stem: [ln for ln in common.BUILD_LOG.get(
+              src.stem, "").splitlines() if "registers" in ln
+              or "spill" in ln] for src in sources}})
 
     rng = np.random.default_rng(SEED)
     n = 1 << scale
@@ -832,11 +1151,24 @@ def main() -> int:
     launches.update(bmv_bff=bff_launches + ls["bmv_bff"],
                     bmv_bbf=ls["bmv_bbf"])
 
+    tc_row = phase_tc(g)
+    spgemm_row = phase_spgemm()
+    road, khop_launches, hop_err = phase_khop()
+    spgemm_row["launches"] += khop_launches["spgemm_bbb"]
+
     table, csr_ms = phase_timing(g, first, sources, launches)
     for row in table:
-        row["max_abs_err"] = max_err[row["name"]]
         row["csr_row_ms"] = csr_ms
-    phase_profile(g, sources[0])
+    table += [tc_row, spgemm_row]
+    for row in table:
+        src = KERNELS[row["name"]]
+        row.update(route="cuda", replaces=src[0], source=src[1],
+                   max_abs_err=max(row.get("max_abs_err", 0),
+                                   max_err[row["name"]]))
+    spgemm_row["max_abs_err"] = max(spgemm_row["max_abs_err"], hop_err)
+    order = list(KERNELS)
+    table.sort(key=lambda r: order.index(r["name"]))
+    phase_profile(g, sources[0], road)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

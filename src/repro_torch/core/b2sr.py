@@ -14,6 +14,11 @@ is ``coo_to_b2sr`` of the swapped COO (canonical, hence identical).
 
 The ELL and bucketed views are kept for the ``b2sr`` word schemes; the
 CUDA kernels walk the CSR-over-tiles arrays directly and never need them.
+The same holds for the dense packed grids ``uint32[R, C, t]`` of the
+SpGEMM helpers at the end (``ell_to_packed_grid``,
+``packed_grid_to_b2sr``): they take ``n_rows * n_cols / 8`` bytes, so only
+the ``b2sr`` rows build them, at small sizes. Masks and unions of sparse
+results merge the tile lists instead (:func:`combine_tiles`).
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.words import WORD, pack_bits, to_int32, unpack_bits
+from repro_torch.core.words import (WORD, pack_bits, popcount, to_int32,
+                                   unpack_bits)
 from repro_torch.device import DeviceLike, resolve_device
 
 TILE_DIMS = (4, 8, 16, 32)
@@ -272,3 +278,127 @@ def unpack_tiles(tiles: torch.Tensor, tile_dim: int,
                  dtype=torch.float32) -> torch.Tensor:
     """Words ``[..., t]`` -> dense 0/1 ``[..., t, t]`` (row, col)."""
     return unpack_bits(tiles, tile_dim).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Word reductions and packed tile grids (the SpGEMM C-side)
+# ---------------------------------------------------------------------------
+
+def or_reduce_words(words: torch.Tensor, dims) -> torch.Tensor:
+    """Bitwise-OR reduction of int32 words over ``dims`` (the ∨-monoid)."""
+    for d in sorted({d % words.dim() for d in dims}, reverse=True):
+        out = torch.zeros_like(words.select(d, 0))
+        for part in words.unbind(d):
+            out = out | part
+        words = out
+    return words
+
+
+def bit_transpose_words(tiles: torch.Tensor, tile_dim: int) -> torch.Tensor:
+    """Per-tile bit transpose of words ``[..., t]``: unpack, swap, repack."""
+    bits = unpack_bits(tiles, tile_dim)
+    return pack_bits(bits.transpose(-1, -2))
+
+
+def ell_to_packed_grid(ell: B2SREll) -> torch.Tensor:
+    """ELL view -> dense tile grid ``int32[n_tile_rows, n_tile_cols, t]``.
+
+    Every real slot lands at its tile-column; a legal ELL row has distinct
+    tile columns, so plain assignment is the reference's OR-merge.
+    """
+    r_n, _ = ell.tile_col_idx.shape
+    grid = torch.zeros((r_n, ceil_div(ell.n_cols, ell.tile_dim),
+                        ell.tile_dim), dtype=WORD,
+                       device=ell.tile_col_idx.device)
+    r, k = torch.nonzero(ell.tile_col_idx >= 0, as_tuple=True)
+    grid[r, ell.tile_col_idx[r, k].long()] = ell.bit_tiles[r, k]
+    return grid
+
+
+def b2sr_to_packed_grid(m: B2SR) -> torch.Tensor:
+    """B2SR -> dense tile grid ``int32[n_tile_rows, n_tile_cols, t]``."""
+    grid = torch.zeros((m.n_tile_rows, m.n_tile_cols, m.tile_dim),
+                       dtype=WORD, device=m.device)
+    grid[tile_rows(m), m.tile_col_idx.long()] = m.bit_tiles
+    return grid
+
+
+def _from_tile_keys(keys: torch.Tensor, words: torch.Tensor, t: int,
+                    n_rows: int, n_cols: int) -> B2SR:
+    """B2SR from sorted tile keys ``row * n_tile_cols + col`` and their
+    words; ``nnz`` is the number of set bits."""
+    n_tc, n_tr = ceil_div(n_cols, t), ceil_div(n_rows, t)
+    ptr = torch.zeros(n_tr + 1, dtype=torch.int64, device=words.device)
+    ptr[1:] = torch.cumsum(torch.bincount(keys // n_tc, minlength=n_tr), 0)
+    return B2SR(tile_row_ptr=ptr.to(torch.int32),
+                tile_col_idx=(keys % n_tc).to(torch.int32),
+                bit_tiles=words.contiguous(), tile_dim=t, n_rows=n_rows,
+                n_cols=n_cols, nnz=count_bits(words))
+
+
+def count_bits(words: torch.Tensor) -> int:
+    """Set bits of int32 bit-pattern words, as a Python int."""
+    return int(popcount(words).sum(dtype=torch.int64)) if words.numel() else 0
+
+
+def packed_grid_to_b2sr(grid: torch.Tensor, n_rows: int, n_cols: int) -> B2SR:
+    """Dense tile grid ``int32[R, C, t]`` -> B2SR, all-zero tiles dropped."""
+    r_n, c_n, t = grid.shape
+    if t not in TILE_DIMS:
+        raise ValueError(f"tile_dim must be one of {TILE_DIMS}, got {t}")
+    if r_n != ceil_div(n_rows, t) or c_n < ceil_div(n_cols, t):
+        raise ValueError(f"grid {tuple(grid.shape)} inconsistent with "
+                         f"({n_rows}, {n_cols}) at tile_dim {t}")
+    tr, tc = torch.nonzero((grid != 0).any(-1), as_tuple=True)
+    ptr = torch.zeros(r_n + 1, dtype=torch.int64, device=grid.device)
+    ptr[1:] = torch.cumsum(torch.bincount(tr, minlength=r_n), 0)
+    tiles = grid[tr, tc]
+    return B2SR(tile_row_ptr=ptr.to(torch.int32),
+                tile_col_idx=tc.to(torch.int32), bit_tiles=tiles,
+                tile_dim=t, n_rows=n_rows, n_cols=n_cols,
+                nnz=count_bits(tiles))
+
+
+def tile_keys(m: B2SR) -> torch.Tensor:
+    """``row * n_tile_cols + col`` of every stored tile (int64, sorted when
+    each tile-row's columns are)."""
+    return tile_rows(m) * m.n_tile_cols + m.tile_col_idx.long()
+
+
+def combine_tiles(a: B2SR, b: B2SR, fn) -> B2SR:
+    """``fn(a_words, b_words)`` tile by tile over the union of the two tile
+    lists (a tile one side lacks reads as zero words); tiles that come
+    out all zero are dropped. The sparse form of a word-wise operation
+    on two packed grids."""
+    if (a.tile_dim, a.n_rows, a.n_cols) != (b.tile_dim, b.n_rows, b.n_cols):
+        raise ValueError(f"shape mismatch: {a.n_rows}x{a.n_cols} "
+                         f"(t={a.tile_dim}) vs {b.n_rows}x{b.n_cols} "
+                         f"(t={b.tile_dim})")
+    keys, inv = torch.unique(torch.cat([tile_keys(a), tile_keys(b)]),
+                             return_inverse=True)
+    wa = torch.zeros((keys.shape[0], a.tile_dim), dtype=WORD, device=a.device)
+    wb = torch.zeros_like(wa)
+    wa[inv[:a.n_tiles]] = a.bit_tiles
+    wb[inv[a.n_tiles:]] = b.bit_tiles
+    w = fn(wa, wb)
+    keep = (w != 0).any(-1)
+    return _from_tile_keys(keys[keep], w[keep], a.tile_dim, a.n_rows,
+                           a.n_cols)
+
+
+def stack_rows(pieces, n_cols: int, tile_dim: int) -> B2SR:
+    """Stack B2SR row blocks (each but the last a whole number of
+    tile-rows) into one matrix; ``nnz`` counts the set bits."""
+    t = tile_dim
+    if not pieces:
+        raise ValueError("stack_rows needs at least one piece")
+    dev = pieces[0].device
+    ptrs = [torch.zeros(1, dtype=torch.int64, device=dev)]
+    for p in pieces:
+        ptrs.append(p.tile_row_ptr[1:].long() + ptrs[-1][-1])
+    tiles = torch.cat([p.bit_tiles for p in pieces])
+    return B2SR(tile_row_ptr=torch.cat(ptrs).to(torch.int32),
+                tile_col_idx=torch.cat([p.tile_col_idx for p in pieces]),
+                bit_tiles=tiles.view(-1, t), tile_dim=t,
+                n_rows=sum(p.n_rows for p in pieces), n_cols=n_cols,
+                nnz=count_bits(tiles))

@@ -3,6 +3,12 @@
 The GraphBLAST/cuSPARSE stand-in: the packed operand is unpacked to
 float32, multiplied on the float CSR twin and repacked. Bucketing never
 applies to CSR, so every entry registers for both ``bucketed`` flags.
+
+The graph rows: the boolean SpGEMM returns a B2SR built from the sparse
+product (``csr.mxm_bool``) and the triangle sum intersects sorted rows
+(``csr.tri_sum``); both stay sparse where the reference densifies to
+``[n, n]``. The count rows return the dense float32 counts, as the
+reference's do, so they are for small sizes only.
 """
 
 from __future__ import annotations
@@ -54,3 +60,35 @@ def _mxv_count_masked(g, xw, call):
     y = _mxv_count(g, xw, call)
     return apply_output_mask(y, call.mask, call.complement,
                              torch.zeros((), dtype=call.out_dtype))
+
+
+# -- mxm over graph operands: Table III ---------------------------------------
+
+@register("mxm", "graph", "bin", "csr", bucketed=BOTH)
+def _mxm_graph(g, other, call):
+    mask = call.mask.csr if call.mask is not None else None
+    return csr_mod.mxm_bool(g.csr, other.csr, g.tile_dim, mask,
+                            call.complement)
+
+
+def _graph_counts(g, other):
+    return csr_mod.to_sparse(g.csr) @ csr_mod.to_dense(other.csr)
+
+
+@register("mxm", "graph", "full", "csr", bucketed=BOTH, masked=False)
+def _mxm_graph_count(g, other, call):
+    return _graph_counts(g, other)
+
+
+@register("mxm", "graph", "full", "csr", bucketed=BOTH, masked=True)
+def _mxm_graph_count_masked(g, other, call):
+    dm = csr_mod.to_dense(call.mask.csr) > 0
+    return torch.where(~dm if call.complement else dm,
+                       _graph_counts(g, other), 0.0)
+
+
+# -- mxm_sum: Σ mask ⊙ (A·B), tri_count's fused reduction ----------------------
+
+@register("mxm_sum", "tri", "full", "csr", bucketed=BOTH, masked=True)
+def _tri_sum(g, tri, call):
+    return csr_mod.tri_sum(tri.csr)

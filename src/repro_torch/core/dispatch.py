@@ -5,10 +5,15 @@ keyed by the full Table II/III coordinate (the reference's key):
 
     (op, rhs, out, backend, bucketed, masked, sharded)
 
-  op        "mxv" | "mxv_pull" (the early-exit pull traversal row,
-            masked-only, selected by ``Descriptor(direction="pull")``)
-  rhs       operand kind of the right-hand side: "dense" | "bitvec"
-  out       "bin" (packed words) | "full" (dense values)
+  op        "mxv" | "mxm" | "mxm_sum" (the fused masked Σ mask ⊙ (A·B)
+            reduction of ``tri_count``, masked-only) | "mxv_pull" (the
+            early-exit pull traversal row, masked-only, selected by
+            ``Descriptor(direction="pull")``)
+  rhs       operand kind of the right-hand side: "dense" | "bitvec" |
+            "graph" (a GraphMatrix) | "tri" (the memoized lower-triangle
+            operand of ``tri_count``)
+  out       "bin" (packed words; a B2SR for SpGEMM) | "full" (dense
+            values)
   backend   "b2sr" (torch word schemes, ``repro_torch.core.ops``)
             | "b2sr_cuda" (hand-written CUDA kernels,
             ``repro_torch.kernels.*.ops``) | "csr" (float CSR baseline)
@@ -17,7 +22,8 @@ keyed by the full Table II/III coordinate (the reference's key):
   sharded   always False until the multi-GPU slice
 
 Implementations have the signature ``fn(g, rhs, call)`` and return the
-raw result (packed words or dense values). Backend modules are imported
+raw result: packed words, dense values, a B2SR (boolean SpGEMM) or an
+int64 scalar (``mxm_sum``). Backend modules are imported
 on the first lookup for that backend.
 """
 
@@ -33,19 +39,22 @@ from repro_torch.core.semiring import Semiring
 
 Key = Tuple[str, str, str, str, bool, bool, bool]
 
-OPS = ("mxv", "mxv_pull")
+OPS = ("mxv", "mxm", "mxm_sum", "mxv_pull")
 
-#: Ops whose rows exist only with a mask: pull without the visited mask
-#: has nothing to exit on.
-MASKED_ONLY_OPS = ("mxv_pull",)
-RHS_KINDS = ("dense", "bitvec")
+#: Ops whose rows exist only with a mask: the fused TC reduction is
+#: masked by construction, and pull without the visited mask has nothing
+#: to exit on.
+MASKED_ONLY_OPS = ("mxm_sum", "mxv_pull")
+RHS_KINDS = ("dense", "bitvec", "graph", "tri")
 OUT_KINDS = ("bin", "full")
 
 _REGISTRY: Dict[Key, Callable] = {}
 
 _BACKEND_MODULES: Dict[str, Tuple[str, ...]] = {
     "b2sr": ("repro_torch.core.ops",),
-    "b2sr_cuda": ("repro_torch.kernels.bmv.ops",),
+    "b2sr_cuda": ("repro_torch.kernels.bmv.ops",
+                  "repro_torch.kernels.bmm.ops",
+                  "repro_torch.kernels.spgemm.ops"),
     "csr": ("repro_torch.core.csr_backend",),
 }
 BACKENDS = tuple(_BACKEND_MODULES)
@@ -131,15 +140,21 @@ def registered_keys(load_all: bool = False) -> Tuple[Key, ...]:
 
 def out_kind_for(semiring: Semiring, rhs: str) -> str:
     """Boolean ⊕.⊗ over a packed operand stays packed; else full values."""
-    if semiring.name == "boolean" and rhs == "bitvec":
+    if semiring.name == "boolean" and rhs in ("bitvec", "frontier", "graph"):
         return "bin"
     return "full"
 
 
-#: Semirings each (op, rhs) pair can honor (dense-rhs mxv accepts all).
+#: Semirings each (op, rhs) pair can honor (dense-rhs mxv accepts all);
+#: the reference's table, the rows of later slices included.
 SEMIRING_ROWS = {
     ("mxv", "bitvec"): ("boolean", "arithmetic"),
+    ("mxm", "dense"): ("arithmetic",),
+    ("mxm", "frontier"): ("boolean",),
+    ("mxm", "bitmat"): ("arithmetic",),
+    ("mxm", "graph"): ("boolean", "arithmetic"),
     ("mxv_pull", "bitvec"): ("boolean",),
+    ("mxm_pull", "frontier"): ("boolean",),
 }
 
 

@@ -1,11 +1,13 @@
 """High-level GraphBLAS matrix object: the generic operation API.
 
-The torch twin of ``repro.core.graphblas.GraphMatrix`` for the mxv rows.
-A ``GraphMatrix`` holds, for each stored orientation (the matrix and its
-transpose), the B2SR arrays and the float CSR baseline twin, all on one
-device. ``mxv`` resolves the Table II row from the operand type and the
-semiring and looks the implementation up in ``repro_torch.core.dispatch``
-under ``(op, rhs, out, backend, bucketed, masked, sharded)``.
+The torch twin of ``repro.core.graphblas.GraphMatrix`` for the mxv rows
+and the mxm rows over graph operands. A ``GraphMatrix`` holds, for each
+stored orientation (the matrix and its transpose), the B2SR arrays and
+the float CSR baseline twin, all on one device. ``mxv`` and ``mxm``
+resolve the Table II/III row from the operand type and the semiring and
+look the implementation up in ``repro_torch.core.dispatch`` under
+``(op, rhs, out, backend, bucketed, masked, sharded)``; ``tri_count`` is
+the ``mxm_sum`` row over the memoized strict lower triangle.
 
 ``backend`` selects the compute path:
   "b2sr"       torch word-level bit schemes (``repro_torch.core.ops``)
@@ -16,7 +18,9 @@ under ``(op, rhs, out, backend, bucketed, masked, sharded)``.
 The ELL and bucketed views are built lazily, on the first ``b2sr`` row
 that reads them, and cached per orientation (shared with the transposed
 view). On skewed graphs the single-max ELL is far larger than the graph;
-the CUDA kernels and the CSR baseline never build it.
+the CUDA kernels and the CSR baseline never build it. A matrix wrapped
+from a B2SR (``from_b2sr``, every boolean ``mxm`` result) builds its CSR
+twin the same way, from its tiles, on the first row that reads it.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ from repro_torch.core import b2sr as b2sr_mod
 from repro_torch.core import csr as csr_mod
 from repro_torch.core import descriptor as descriptor_mod
 from repro_torch.core import dispatch
-from repro_torch.core.b2sr import B2SR, B2SRBucketedEll, B2SREll, pack_bitvector
+from repro_torch.core.b2sr import (B2SR, B2SRBucketedEll, B2SREll,
+                                   combine_tiles, pack_bitvector)
 from repro_torch.core.descriptor import _UNSET, Descriptor
 from repro_torch.core.dispatch import OpCall
 from repro_torch.core.operands import BitVector, check_operand, operand_kind
@@ -41,13 +46,24 @@ BACKENDS = dispatch.BACKENDS
 
 
 class Orientation:
-    """One stored orientation: B2SR + CSR twin, with lazy ELL/bucketed views."""
+    """One stored orientation: B2SR + CSR twin, with lazy ELL/bucketed
+    views; without a CSR twin given, it is built from the tiles on first
+    use."""
 
-    def __init__(self, b2sr: B2SR, csr: csr_mod.CSRMatrix):
+    def __init__(self, b2sr: B2SR, csr: Optional[csr_mod.CSRMatrix] = None):
         self.b2sr = b2sr
-        self.csr = csr
+        self._csr = csr
         self.ell: Optional[B2SREll] = None
         self.buckets: Optional[B2SRBucketedEll] = None
+
+    @property
+    def csr(self) -> csr_mod.CSRMatrix:
+        if self._csr is None:
+            m = self.b2sr
+            rows, cols = b2sr_mod.b2sr_to_coo(m)
+            self._csr = csr_mod.from_coo(rows, cols, m.n_rows, m.n_cols,
+                                         device=m.device)
+        return self._csr
 
     def get_ell(self) -> B2SREll:
         if self.ell is None:
@@ -58,6 +74,63 @@ class Orientation:
         if self.buckets is None:
             self.buckets = b2sr_mod.to_bucketed(self.b2sr)
         return self.buckets
+
+
+class LowerTriangle:
+    """Memoized strict-lower-triangle operand of ``tri_count`` (L, Lᵀ).
+
+    The split (``row > col``) is taken from the CSR twin on its device.
+    L's B2SR is built when asked for (at once for ``b2sr_cuda``, whose
+    kernel reads L three ways: as A, as the mask and as Bᵀ); the ELL views
+    of L and Lᵀ and the bucketed view only for the ``b2sr`` rows, the CSR
+    only for ``csr``.
+    """
+
+    def __init__(self, csr: csr_mod.CSRMatrix, tile_dim: int, n: int,
+                 build_b2sr: bool = False):
+        keep = csr.row_idx > csr.col_idx
+        self.rows = csr.row_idx[keep].long()
+        self.cols = csr.col_idx[keep].long()
+        self.tile_dim, self.n = tile_dim, n
+        self._b2sr: Optional[B2SR] = None
+        self._csr: Optional[csr_mod.CSRMatrix] = None
+        self._ell: Optional[B2SREll] = None
+        self._ell_t: Optional[B2SREll] = None
+        self._buckets: Optional[B2SRBucketedEll] = None
+        if build_b2sr:
+            self.b2sr
+
+    @property
+    def b2sr(self) -> B2SR:
+        if self._b2sr is None:
+            self._b2sr = b2sr_mod.coo_to_b2sr(self.rows, self.cols, self.n,
+                                              self.n, self.tile_dim,
+                                              self.rows.device)
+        return self._b2sr
+
+    @property
+    def csr(self) -> csr_mod.CSRMatrix:
+        if self._csr is None:
+            self._csr = csr_mod.from_coo(self.rows, self.cols, self.n,
+                                         self.n, device=self.rows.device)
+        return self._csr
+
+    @property
+    def ell(self) -> B2SREll:
+        if self._ell is None:
+            self._ell = b2sr_mod.to_ell(self.b2sr)
+        return self._ell
+
+    @property
+    def ell_t(self) -> B2SREll:
+        if self._ell_t is None:
+            self._ell_t = b2sr_mod.to_ell(b2sr_mod.transpose(self.b2sr))
+        return self._ell_t
+
+    def buckets(self) -> B2SRBucketedEll:
+        if self._buckets is None:
+            self._buckets = b2sr_mod.to_bucketed(self.b2sr)
+        return self._buckets
 
 
 @dataclasses.dataclass
@@ -74,6 +147,7 @@ class GraphMatrix:
     use_buckets: bool = True
     degrees_cache: Optional[torch.Tensor] = None
     transposed_cache: Optional["GraphMatrix"] = None
+    tri_cache: Optional[LowerTriangle] = None
 
     # -- constructors -------------------------------------------------------
     @staticmethod
@@ -98,6 +172,20 @@ class GraphMatrix:
         return GraphMatrix(n_rows=n_rows, n_cols=n_cols, nnz=mat.nnz,
                            tile_dim=tile_dim, fwd=fwd, bwd=bwd,
                            backend=backend)
+
+    @staticmethod
+    def from_b2sr(mat: B2SR, with_transpose: bool = True,
+                  backend: str = "b2sr") -> "GraphMatrix":
+        """Wrap an already-built B2SR (an mxm result) without re-packing,
+        on its device. The transpose is ``transpose(mat)``; the CSR twins
+        are built from the tiles (``b2sr_to_coo``) on first use."""
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}")
+        bwd = (Orientation(b2sr_mod.transpose(mat)) if with_transpose
+               else None)
+        return GraphMatrix(n_rows=mat.n_rows, n_cols=mat.n_cols,
+                           nnz=mat.nnz, tile_dim=mat.tile_dim,
+                           fwd=Orientation(mat), bwd=bwd, backend=backend)
 
     @staticmethod
     def from_dense(mat, tile_dim: int = 32, **kw) -> "GraphMatrix":
@@ -130,7 +218,8 @@ class GraphMatrix:
                              "(with_transpose=True)")
         gt = dataclasses.replace(self, fwd=self.bwd, bwd=self.fwd,
                                  n_rows=self.n_cols, n_cols=self.n_rows,
-                                 degrees_cache=None, transposed_cache=self)
+                                 degrees_cache=None, transposed_cache=self,
+                                 tri_cache=None)
         self.transposed_cache = gt
         return gt
 
@@ -229,6 +318,87 @@ class GraphMatrix:
         return self.mxv(x, semiring, desc.replace_with(transpose_a=True),
                         **kw)
 
+    def mxm(self, other=None, semiring: Optional[Semiring] = None,
+            desc: Optional[Descriptor] = None, *, out=None,
+            with_transpose: bool = True, mask=_UNSET, complement=_UNSET,
+            row_chunk=_UNSET):
+        """C⟨M⟩ = A ⊕.⊗ B — the generic matrix product (paper Table III).
+
+          ``GraphMatrix`` B,    bin·bin→bin boolean SpGEMM: a new
+          boolean semiring      ``GraphMatrix`` (``other`` defaults to
+                                ``self``: A², 2-hop reachability)
+          ``GraphMatrix`` B,    bin·bin→full count SpGEMM: the dense
+          arithmetic            ``[n_rows, n_cols]`` common-neighbour
+                                counts (int32 on the bit backends,
+                                float32 on ``csr``, as in the reference)
+
+        The mask is a structural ``GraphMatrix``, applied right before the
+        store (paper §V); ``desc.replace=False`` merges the masked-out
+        entries from ``out``. ``with_transpose`` decides whether a boolean
+        result stores its transpose. Dense, ``FrontierBatch`` and
+        ``BitMatrix`` operands come with later slices.
+        """
+        desc = descriptor_mod.merge_sugar(desc, mask, complement, row_chunk)
+        if desc.transpose_a:
+            return self.transposed().mxm(
+                other, semiring, desc.replace_with(transpose_a=False),
+                out=out, with_transpose=with_transpose)
+        other = self if other is None else other
+        kind = operand_kind(other)
+        if kind == "bitvec":
+            raise TypeError("mxm right-hand side is a BitVector; use mxv "
+                            "for packed vector operands")
+        if kind != "graph":
+            raise NotImplementedError(
+                "mxm over a dense, FrontierBatch or BitMatrix operand is not "
+                "ported yet (ROADMAP Queue 1 items 6-7); the port has the "
+                "GraphMatrix rows")
+        semiring = semiring if semiring is not None else BOOLEAN
+        dispatch.check_semiring("mxm", kind, semiring)
+        out_kind = dispatch.out_kind_for(semiring, kind)
+        if self.n_cols != other.n_rows:
+            raise ValueError(f"inner-dim mismatch: {self.n_cols} vs "
+                             f"{other.n_rows}")
+        if self.backend != "csr" and self.tile_dim != other.tile_dim:
+            raise ValueError(f"tile_dim mismatch: {self.tile_dim} vs "
+                             f"{other.tile_dim}")
+        call = OpCall(semiring=semiring,
+                      mask=self._norm_graph_mask(desc.mask, out_kind, other),
+                      complement=desc.complement, row_chunk=desc.row_chunk)
+        op = self._direction_op("mxm", desc, kind, "frontier", out_kind,
+                                call.mask is not None)
+        impl = dispatch.resolve(op, kind, out_kind, self.backend,
+                                self._bucketed(desc.row_chunk),
+                                call.mask is not None)
+        y = impl(self, other, call)
+        if out_kind == "bin":
+            return self._to_graph(y, desc, out, with_transpose)
+        if desc.replace or desc.mask is None:
+            return y
+        if out is None:
+            raise ValueError("desc.replace=False needs the previous output "
+                             "(out=) to merge masked-out entries from")
+        dm = csr_mod.to_dense(desc.mask.csr) > 0
+        return torch.where(~dm if desc.complement else dm, y, out)
+
+    def tri_count(self, row_chunk: Optional[int] = None) -> torch.Tensor:
+        """Σ (L·Lᵀ ⊙ L), L the strict lower triangle: the triangle count of
+        the undirected graph, as an exact int64 scalar tensor.
+
+        The fused masked reduction (paper §V, Listing 2), dispatched as
+        the ``mxm_sum`` row; L is split once and memoized
+        (:class:`LowerTriangle`). The reference returns float32, exact
+        only up to 2**24.
+        """
+        if self.tri_cache is None:
+            self.tri_cache = LowerTriangle(
+                self.csr, self.tile_dim, self.n_rows,
+                build_b2sr=self.backend == "b2sr_cuda")
+        call = OpCall(semiring=ARITHMETIC, row_chunk=row_chunk)
+        impl = dispatch.resolve("mxm_sum", "tri", "full", self.backend,
+                                self._bucketed(row_chunk), True)
+        return impl(self, self.tri_cache, call)
+
     # -- generic-layer helpers ---------------------------------------------
     @staticmethod
     def _direction_op(base: str, desc: Descriptor, kind: str,
@@ -263,6 +433,42 @@ class GraphMatrix:
             check_operand(mask, self.tile_dim, self.n_rows, "mask")
             return mask.unpack(torch.bool)
         return mask
+
+    def _norm_graph_mask(self, mask, out_kind: str, other: "GraphMatrix"):
+        """Validate a structural SpGEMM mask (a ``GraphMatrix`` shaped like
+        the output)."""
+        if mask is None:
+            return None
+        if operand_kind(mask) != "graph":
+            raise TypeError("mxm over GraphMatrix operands takes a "
+                            "structural GraphMatrix mask")
+        if mask.n_rows != self.n_rows or mask.n_cols != other.n_cols:
+            raise ValueError("mask shape must match the output")
+        if (out_kind == "bin" and self.backend != "csr"
+                and mask.tile_dim != self.tile_dim):
+            raise ValueError(f"mask tile_dim mismatch: {mask.tile_dim} "
+                             f"vs {self.tile_dim}")
+        return mask
+
+    def _to_graph(self, mat: B2SR, desc: Descriptor, out,
+                  with_transpose: bool) -> "GraphMatrix":
+        """Wrap a boolean SpGEMM result; ``desc.replace=False`` ORs in
+        ``out``'s bits outside the (complemented) mask, a merge of the
+        sparse tile lists."""
+        if not desc.replace and desc.mask is not None:
+            if out is None:
+                raise ValueError("desc.replace=False needs the previous "
+                                 "output (out=) to merge masked-out entries "
+                                 "from")
+            if desc.complement:
+                kept = combine_tiles(out.b2sr, desc.mask.b2sr,
+                                     lambda o, m: o & m)
+            else:
+                kept = combine_tiles(out.b2sr, desc.mask.b2sr,
+                                     lambda o, m: o & ~m)
+            mat = combine_tiles(mat, kept, torch.bitwise_or)
+        return GraphMatrix.from_b2sr(mat, with_transpose=with_transpose,
+                                     backend=self.backend)
 
     @staticmethod
     def _merge_unreplaced(y, desc: Descriptor, out, out_kind: str,

@@ -2,9 +2,9 @@
 
 ``BitVector`` is the packed frontier / visited-set vector: one int32
 bit-pattern word per ``tile_dim`` entries, LSB first (the
-``pack_bitvector`` layout). Plain tensors are dense vectors. The
-multi-source ``FrontierBatch`` and BitGNN ``BitMatrix`` operands come with
-their slices.
+``pack_bitvector`` layout). Plain tensors are dense vectors, and a
+``GraphMatrix`` is the SpGEMM operand. The multi-source ``FrontierBatch``
+and BitGNN ``BitMatrix`` operands come with their slices.
 """
 
 from __future__ import annotations
@@ -63,10 +63,12 @@ class BitVector:
 
 
 def operand_kind(x) -> str:
-    """Classify a right-hand operand for dispatch: the Table II column."""
+    """Classify a right-hand operand for dispatch: the Table II/III column."""
     if isinstance(x, BitVector):
         return "bitvec"
-    if hasattr(x, "b2sr") and hasattr(x, "csr"):   # GraphMatrix, structurally
+    # GraphMatrix, structurally (it lives above this module); ``fwd`` is a
+    # plain field, where reading ``csr`` would build the lazy CSR twin
+    if hasattr(x, "b2sr") and hasattr(x, "fwd"):
         return "graph"
     return "dense"
 

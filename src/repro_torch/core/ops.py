@@ -1,11 +1,21 @@
 """GraphBLAS operations over B2SR: the torch word-level schemes (``b2sr``).
 
-The torch twin of ``repro.core.ops`` for the Table II mxv rows:
+The torch twin of ``repro.core.ops`` for the Table II mxv rows and the
+Table III mxm rows over graph operands:
 
   bmv_bin_bin_bin     A:1-bit, x:1-bit, y:1-bit   (boolean semiring: BFS)
   bmv_bin_bin_full    A:1-bit, x:1-bit, y:counts  (neighbour counts)
   bmv_bin_full_full   A:1-bit, x:full,  y:full    (any semiring: SSSP, CC,
                                                    PageRank)
+  mxm_bin_bin_bin     A:1-bit, B:1-bit, C:1-bit   (boolean SpGEMM, k-hop)
+  mxm_bin_bin_full    A:1-bit, B:1-bit, C:counts  (common neighbours)
+  bmm_bin_bin_sum_masked   Σ mask ⊙ (A·B)         (triangle counting)
+
+The mxm schemes build what the reference's do: ELL walks into a dense
+packed grid ``[R, C, t]`` or a dense ``[n_rows, n_cols]`` count matrix
+(``n_rows * n_cols`` bytes and more), so they run at small sizes only;
+the ``b2sr_cuda`` kernels and the ``csr`` rows keep products sparse.
+Sums are int64 here, where the reference's are float32 or int32.
 
 Each scheme's per-slab math lives in a ``_*_block`` helper taking raw
 ``(col_idx, tiles)`` ELL arrays, so the single-ELL path (mapped over row
@@ -19,7 +29,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.b2sr import B2SRBucketedEll, B2SREll, ceil_div
+from repro_torch.core.b2sr import (B2SRBucketedEll, B2SREll,
+                                   bit_transpose_words, ceil_div,
+                                   ell_to_packed_grid, or_reduce_words,
+                                   packed_grid_to_b2sr)
 from repro_torch.core.dispatch import apply_output_mask, register
 from repro_torch.core.semiring import ARITHMETIC, BOOLEAN, Semiring
 from repro_torch.core.words import WORD, pack_bits, popcount, unpack_bits
@@ -243,6 +256,233 @@ def vxm(ell_t: B2SREll, x: torch.Tensor, **kw) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# BMM: bin × bin -> masked scalar sum (the TC reduction, paper Listing 2)
+# ---------------------------------------------------------------------------
+
+def _tile_products(a_words: torch.Tensor, bt_words: torch.Tensor) -> torch.Tensor:
+    """Count tiles of A·B from A's words and Bᵀ's words (B's bit-columns):
+    ``P[..., r, c] = popcount(a[r] & bᵀ[c])`` (int32 ``[..., t, t]``)."""
+    return popcount(a_words.unsqueeze(-1) & bt_words.unsqueeze(-2))
+
+
+def bmm_bin_bin_sum_masked(a: B2SREll, b: B2SREll, mask: B2SREll,
+                           row_chunk: Optional[int] = None) -> torch.Tensor:
+    """Fused masked BMM: Σ mask ⊙ (A·B) as an int64 scalar.
+
+    For TC: A = mask = L, B = Lᵀ. The reference's walk: for every A tile
+    (i, m), B's tile-row m; each B tile (m, j) adds to C tile (i, j),
+    whose mask tile is found by matching j against mask row i.
+    """
+    t = a.tile_dim
+
+    def chunk(a_col, a_tiles, m_col, m_tiles):
+        total = torch.zeros((), dtype=torch.int64, device=a_col.device)
+        for ka in range(a_col.shape[1]):
+            ac = a_col[:, ka]
+            safe = ac.clamp(0, b.n_tile_rows - 1).long()
+            b_cols = b.tile_col_idx[safe]                        # [R, Kb]
+            b_t = bit_transpose_words(b.bit_tiles[safe], t)      # [R, Kb, t]
+            for kb in range(b_cols.shape[1]):
+                bc = b_cols[:, kb]
+                prod = _tile_products(a_tiles[:, ka], b_t[:, kb])  # [R, t, t]
+                match = (m_col == bc[:, None]) & (m_col >= 0)     # [R, Km]
+                m_words = or_reduce_words(
+                    torch.where(match[..., None], m_tiles, 0), (1,))
+                m_bits = unpack_bits(m_words, t)                  # [R, t, t]
+                ok = (ac >= 0) & (bc >= 0)
+                total += torch.where(ok[:, None, None] & m_bits, prod,
+                                     0).sum(dtype=torch.int64)
+        return total
+
+    arrays = (a.tile_col_idx, a.bit_tiles, mask.tile_col_idx, mask.bit_tiles)
+    return _summed_over_rows(chunk, arrays, a.n_tile_rows, row_chunk)
+
+
+def bmm_bin_bin_sum(a: B2SREll, b: B2SREll,
+                    row_chunk: Optional[int] = None) -> torch.Tensor:
+    """Unmasked Σ (A·B) = Σ_r Σ_m A[r, m] · (row m's popcount in B)."""
+    t = a.tile_dim
+
+    def chunk(a_col, a_tiles):
+        total = torch.zeros((), dtype=torch.int64, device=a_col.device)
+        for ka in range(a_col.shape[1]):
+            ac = a_col[:, ka]
+            safe = ac.clamp(0, b.n_tile_rows - 1).long()
+            b_valid = b.tile_col_idx[safe] >= 0                  # [R, Kb]
+            b_row_pop = torch.where(b_valid[..., None],
+                                    popcount(b.bit_tiles[safe]),
+                                    0).sum(1, dtype=torch.int64)  # [R, t(m)]
+            a_bits = unpack_bits(a_tiles[:, ka], t)              # [R, t, t]
+            contrib = torch.where(a_bits, b_row_pop[:, None, :], 0)
+            total += torch.where((ac >= 0)[:, None, None], contrib,
+                                 0).sum(dtype=torch.int64)
+        return total
+
+    return _summed_over_rows(chunk, (a.tile_col_idx, a.bit_tiles),
+                             a.n_tile_rows, row_chunk)
+
+
+def _summed_over_rows(fn, arrays, n_rows: int, row_chunk: Optional[int]):
+    """``fn`` over row chunks of the leading axis, summed."""
+    if row_chunk is None or row_chunk >= n_rows:
+        return fn(*arrays)
+    if n_rows % row_chunk != 0:
+        raise ValueError(f"row_chunk {row_chunk} must divide n_rows {n_rows} "
+                         f"(pad the ELL view)")
+    return sum(fn(*(a[s:s + row_chunk] for a in arrays))
+               for s in range(0, n_rows, row_chunk))
+
+
+# ---------------------------------------------------------------------------
+# MXM: bin × bin -> bin / full SpGEMM (paper Table III)
+# ---------------------------------------------------------------------------
+
+def _check_mxm_dims(a, b) -> None:
+    if a.tile_dim != b.tile_dim:
+        raise ValueError(f"tile_dim mismatch: {a.tile_dim} vs {b.tile_dim}")
+    if a.n_cols != b.n_rows:
+        raise ValueError(f"inner-dim mismatch: A is {a.n_rows}x{a.n_cols}, "
+                         f"B is {b.n_rows}x{b.n_cols}")
+
+
+def mxm_bin_bin_bin(a: B2SREll, b: B2SREll, mask: Optional[B2SREll] = None,
+                    complement: bool = False,
+                    row_chunk: Optional[int] = None) -> torch.Tensor:
+    """Boolean SpGEMM C⟨M⟩ = A ∨.∧ B: the packed grid ``[R, n_tc(B), t]``.
+
+    The AND/shift word algorithm: C's bit-row r ORs in B's word-row k for
+    every set bit k of A's word-row r. Compress with
+    ``packed_grid_to_b2sr``; the mask is ANDed before the return.
+    """
+    _check_mxm_dims(a, b)
+    out = _mapped_over_rows(
+        lambda c, tl: _mxm_bbb_block(c, tl, b, a.tile_dim),
+        (a.tile_col_idx, a.bit_tiles), a.n_tile_rows, row_chunk)
+    return apply_grid_mask(out, mask, complement)
+
+
+def apply_grid_mask(grid: torch.Tensor, mask: Optional[B2SREll],
+                    complement: bool) -> torch.Tensor:
+    """AND a structural mask (or its complement) into a packed grid."""
+    if mask is None:
+        return grid
+    mg = ell_to_packed_grid(mask)
+    return grid & (~mg if complement else mg)
+
+
+def _b_rows(b: B2SREll, ac: torch.Tensor):
+    """B's ELL tile-rows selected by A's tile columns ``ac`` (-1 = pad)."""
+    safe = ac.clamp(0, b.tile_col_idx.shape[0] - 1).long()
+    b_cols = b.tile_col_idx[safe]                            # [R, Kb]
+    ok = (ac >= 0)[:, None] & (b_cols >= 0)
+    return b_cols, b.bit_tiles[safe], ok
+
+
+def _mxm_bbb_block(a_col: torch.Tensor, a_tiles: torch.Tensor, b: B2SREll,
+                   t: int) -> torch.Tensor:
+    """Boolean SpGEMM for one A-side ELL slab: packed grid [R, n_tc_b, t]."""
+    n_tc_b = ceil_div(b.n_cols, t)
+    acc = torch.zeros((a_col.shape[0], n_tc_b, t), dtype=WORD,
+                      device=a_col.device)
+    for k in range(a_col.shape[1]):
+        b_cols, b_tls, ok = _b_rows(b, a_col[:, k])
+        a_bits = unpack_bits(a_tiles[:, k], t)               # [R, t(r), t(k)]
+        # AND/shift: broadcast B's word k where A bit (r, k) is set
+        contrib = torch.where(a_bits[:, None], b_tls[:, :, None, :], 0)
+        c_words = or_reduce_words(contrib, (3,))             # [R, Kb, t(r)]
+        r, kb = torch.nonzero(ok, as_tuple=True)
+        cols = b_cols[r, kb].long()
+        # distinct tile columns per row and step: assignment is the merge
+        acc[r, cols] = acc[r, cols] | c_words[r, kb]
+    return acc
+
+
+def mxm_bin_bin_bin_bucketed(a: B2SRBucketedEll, b: B2SREll,
+                             mask: Optional[B2SREll] = None,
+                             complement: bool = False) -> torch.Tensor:
+    """Bucketed boolean SpGEMM: A's tile-rows per bucket, B one ELL."""
+    _check_mxm_dims(a, b)
+    t = a.tile_dim
+    out = torch.zeros((a.n_tile_rows, ceil_div(b.n_cols, t), t), dtype=WORD,
+                      device=b.tile_col_idx.device)
+    for col, tiles, rows in zip(a.col_idx, a.bit_tiles, a.rows):
+        out[rows.long()] = _mxm_bbb_block(col, tiles, b, t)
+    return apply_grid_mask(out, mask, complement)
+
+
+def _mxm_bbf_block(a_col: torch.Tensor, a_tiles: torch.Tensor, b: B2SREll,
+                   t: int) -> torch.Tensor:
+    """Count SpGEMM for one A-side ELL slab: count tiles [R, n_tc_b, t, t]."""
+    n_tc_b = ceil_div(b.n_cols, t)
+    acc = torch.zeros((a_col.shape[0], n_tc_b, t, t), dtype=torch.int32,
+                      device=a_col.device)
+    for k in range(a_col.shape[1]):
+        b_cols, b_tls, ok = _b_rows(b, a_col[:, k])
+        prod = _tile_products(a_tiles[:, k, None, :],
+                              bit_transpose_words(b_tls, t))  # [R, Kb, t, t]
+        r, kb = torch.nonzero(ok, as_tuple=True)
+        cols = b_cols[r, kb].long()
+        acc[r, cols] += prod[r, kb]
+    return acc
+
+
+def _count_grid_to_dense(grid: torch.Tensor, n_rows: int, n_cols: int,
+                         out_dtype) -> torch.Tensor:
+    r_n, c_n, t, _ = grid.shape
+    dense = grid.permute(0, 2, 1, 3).reshape(r_n * t, c_n * t)
+    return dense[:n_rows, :n_cols].to(out_dtype)
+
+
+def mxm_bin_bin_full(a: B2SREll, b: B2SREll, out_dtype=torch.int32,
+                     row_chunk: Optional[int] = None) -> torch.Tensor:
+    """Count SpGEMM C = A +.× B: the dense ``[n_rows, n_cols]`` counts."""
+    _check_mxm_dims(a, b)
+    grid = _mapped_over_rows(
+        lambda c, tl: _mxm_bbf_block(c, tl, b, a.tile_dim),
+        (a.tile_col_idx, a.bit_tiles), a.n_tile_rows, row_chunk)
+    return _count_grid_to_dense(grid, a.n_rows, b.n_cols, out_dtype)
+
+
+def mxm_bin_bin_full_bucketed(a: B2SRBucketedEll, b: B2SREll,
+                              out_dtype=torch.int32) -> torch.Tensor:
+    """Bucketed count SpGEMM: dense ``[n_rows, n_cols]`` counts."""
+    _check_mxm_dims(a, b)
+    t = a.tile_dim
+    grid = torch.zeros((a.n_tile_rows, ceil_div(b.n_cols, t), t, t),
+                       dtype=torch.int32, device=b.tile_col_idx.device)
+    for col, tiles, rows in zip(a.col_idx, a.bit_tiles, a.rows):
+        grid[rows.long()] = _mxm_bbf_block(col, tiles, b, t)
+    return _count_grid_to_dense(grid, a.n_rows, b.n_cols, out_dtype)
+
+
+def _apply_dense_mask(counts: torch.Tensor, mask: B2SREll,
+                      complement: bool) -> torch.Tensor:
+    t = mask.tile_dim
+    mg = unpack_bits(ell_to_packed_grid(mask), t)            # [R, C, t, t]
+    m_dense = mg.permute(0, 2, 1, 3).reshape(
+        mg.shape[0] * t, mg.shape[1] * t)[: mask.n_rows, : mask.n_cols]
+    keep = ~m_dense if complement else m_dense
+    return torch.where(keep, counts, 0)
+
+
+def mxm_bin_bin_full_masked(a: B2SREll, b: B2SREll, mask: B2SREll,
+                            complement: bool = False, out_dtype=torch.int32,
+                            row_chunk: Optional[int] = None) -> torch.Tensor:
+    """Masked count SpGEMM C⟨M⟩ = A +.× B with a structural B2SR mask;
+    ``sum(mxm_bin_bin_full_masked(L, Lᵀ, L))`` is the triangle count."""
+    counts = mxm_bin_bin_full(a, b, out_dtype, row_chunk)
+    return _apply_dense_mask(counts, mask, complement)
+
+
+def mxm_bin_bin_full_masked_bucketed(a: B2SRBucketedEll, b: B2SREll,
+                                     mask: B2SREll, complement: bool = False,
+                                     out_dtype=torch.int32) -> torch.Tensor:
+    """Bucketed masked count SpGEMM."""
+    counts = mxm_bin_bin_full_bucketed(a, b, out_dtype)
+    return _apply_dense_mask(counts, mask, complement)
+
+
+# ---------------------------------------------------------------------------
 # Dispatch-registry entries: the "b2sr" rows
 # ---------------------------------------------------------------------------
 
@@ -328,3 +568,62 @@ def _mxv_count_bucketed_masked(g, xw, call):
     y = bmv_bin_bin_full_bucketed(g.buckets(), xw, call.out_dtype)
     return apply_output_mask(y, call.mask, call.complement,
                              torch.zeros((), dtype=call.out_dtype))
+
+
+# -- mxm over graph operands: Table III ---------------------------------------
+# The boolean rows return the B2SR of the packed grid (its all-zero tiles
+# dropped); the count rows the dense int32 counts, as the reference's do.
+
+def _mask_ell(call):
+    return call.mask.ell if call.mask is not None else None
+
+
+@register("mxm", "graph", "bin", "b2sr", bucketed=False)
+def _mxm_graph(g, other, call):
+    grid = mxm_bin_bin_bin(g.ell, other.ell, _mask_ell(call),
+                           call.complement, call.row_chunk)
+    return packed_grid_to_b2sr(grid, g.n_rows, other.n_cols)
+
+
+@register("mxm", "graph", "bin", "b2sr", bucketed=True)
+def _mxm_graph_bucketed(g, other, call):
+    grid = mxm_bin_bin_bin_bucketed(g.buckets(), other.ell, _mask_ell(call),
+                                    call.complement)
+    return packed_grid_to_b2sr(grid, g.n_rows, other.n_cols)
+
+
+def mxm_count(g, other, call, bucketed: bool) -> torch.Tensor:
+    """The count rows (bin·bin→full) of ``b2sr`` and ``b2sr_cuda``."""
+    if bucketed:
+        counts = mxm_bin_bin_full_bucketed(g.buckets(), other.ell)
+    else:
+        counts = mxm_bin_bin_full(g.ell, other.ell, row_chunk=call.row_chunk)
+    if call.mask is None:
+        return counts
+    return _apply_dense_mask(counts, call.mask.ell, call.complement)
+
+
+@register("mxm", "graph", "full", "b2sr", bucketed=False)
+def _mxm_graph_count(g, other, call):
+    return mxm_count(g, other, call, bucketed=False)
+
+
+@register("mxm", "graph", "full", "b2sr", bucketed=True)
+def _mxm_graph_count_bucketed(g, other, call):
+    return mxm_count(g, other, call, bucketed=True)
+
+
+# -- mxm_sum: Σ mask ⊙ (A·B), tri_count's fused reduction ----------------------
+
+@register("mxm_sum", "tri", "full", "b2sr", bucketed=False, masked=True)
+def _tri_sum(g, tri, call):
+    counts = mxm_bin_bin_full_masked(tri.ell, tri.ell_t, tri.ell,
+                                     row_chunk=call.row_chunk)
+    return counts.sum(dtype=torch.int64)
+
+
+@register("mxm_sum", "tri", "full", "b2sr", bucketed=True, masked=True)
+def _tri_sum_bucketed(g, tri, call):
+    counts = mxm_bin_bin_full_masked_bucketed(tri.buckets(), tri.ell_t,
+                                              tri.ell)
+    return counts.sum(dtype=torch.int64)

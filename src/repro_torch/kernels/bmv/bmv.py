@@ -68,16 +68,6 @@ def _check(tile_row_ptr, tile_col_idx, bit_tiles, x, mask, t: int,
         raise ValueError("bit_tiles must be 16-byte aligned (vector loads)")
 
 
-def _call(name: str, argtypes, x: torch.Tensor, *args) -> None:
-    """Launch ``name`` on ``x``'s device and current stream; raise on error."""
-    lib = common.load_library(SOURCE)
-    fn = getattr(lib, name)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    with torch.cuda.device(x.device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    common.check_launch(lib, err, name)
-
-
 def _launch(name: str, tile_row_ptr, tile_col_idx, bit_tiles, x, mask, t: int,
             complement: bool) -> Optional[torch.Tensor]:
     """Launch BFS kernel ``name``; returns ``None`` when there is no row."""
@@ -86,10 +76,10 @@ def _launch(name: str, tile_row_ptr, tile_col_idx, bit_tiles, x, mask, t: int,
     if n_rows == 0:
         return None
     out = torch.empty(n_rows, dtype=WORD, device=x.device)
-    _call(name, _BBB_ARGS, x, tile_row_ptr.data_ptr(),
-          tile_col_idx.data_ptr(), bit_tiles.data_ptr(), x.data_ptr(),
-          None if mask is None else mask.data_ptr(), out.data_ptr(), n_rows,
-          t, int(complement))
+    common.call(SOURCE, name, _BBB_ARGS, x, tile_row_ptr.data_ptr(),
+                tile_col_idx.data_ptr(), bit_tiles.data_ptr(), x.data_ptr(),
+                None if mask is None else mask.data_ptr(), out.data_ptr(),
+                n_rows, t, int(complement))
     return out
 
 
@@ -150,10 +140,10 @@ def bmv_bff(tile_row_ptr: torch.Tensor, tile_col_idx: torch.Tensor,
     out = torch.empty(n_rows * t, dtype=torch.float32, device=x3.device)
     if n_rows == 0:
         return out
-    _call("bmv_bff", _BFF_ARGS, x3, tile_row_ptr.data_ptr(),
-          tile_col_idx.data_ptr(), bit_tiles.data_ptr(), x3.data_ptr(),
-          out.data_ptr(), n_rows, t, BFF_MODE_IDS[mode], float(a_value),
-          ref.BFF_MODES[mode][0])
+    common.call(SOURCE, "bmv_bff", _BFF_ARGS, x3, tile_row_ptr.data_ptr(),
+                tile_col_idx.data_ptr(), bit_tiles.data_ptr(), x3.data_ptr(),
+                out.data_ptr(), n_rows, t, BFF_MODE_IDS[mode],
+                float(a_value), ref.BFF_MODES[mode][0])
     bmv_bff.launches += 1
     return out
 
@@ -169,9 +159,9 @@ def bmv_bbf(tile_row_ptr: torch.Tensor, tile_col_idx: torch.Tensor,
     out = torch.empty(n_rows * t, dtype=torch.int32, device=x.device)
     if n_rows == 0:
         return out
-    _call("bmv_bbf", _BBF_ARGS, x, tile_row_ptr.data_ptr(),
-          tile_col_idx.data_ptr(), bit_tiles.data_ptr(), x.data_ptr(),
-          out.data_ptr(), n_rows, t)
+    common.call(SOURCE, "bmv_bbf", _BBF_ARGS, x, tile_row_ptr.data_ptr(),
+                tile_col_idx.data_ptr(), bit_tiles.data_ptr(), x.data_ptr(),
+                out.data_ptr(), n_rows, t)
     bmv_bbf.launches += 1
     return out
 

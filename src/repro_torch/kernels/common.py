@@ -6,8 +6,8 @@ pass ``data_ptr()`` pointers and the current stream. A library that
 includes no PyTorch header builds in seconds, where a
 ``torch.utils.cpp_extension`` build takes minutes. Libraries land in
 ``build/torch_ext/`` at the repository root, named by a hash of the
-source and flags, so an edited source is rebuilt. A failed build raises
-with the compiler's output.
+source (with the local headers it includes) and flags, so an edited
+source is rebuilt. A failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -15,14 +15,21 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: Tile columns the shared-memory bitmap of ``row_bitmap.cuh`` holds
+#: (``rowbm::kMaxWords`` words of 32)
+ROW_BITMAP_MAX_TILE_COLS = ((232448 - 4096) // 8) * 32
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: compiler output (``ptxas -v``: registers, shared memory, spills) of each
@@ -47,7 +54,11 @@ def load_library(source: Path) -> ctypes.CDLL:
     key = str(source)
     if key in _LIBS:
         return _LIBS[key]
-    digest = hashlib.sha256(source.read_bytes()
+    text = source.read_bytes()
+    headers = re.findall(rb'^#include "([^"]+)"', text, re.MULTILINE)
+    for h in headers:
+        text += (source.parent / h.decode()).read_bytes()
+    digest = hashlib.sha256(text
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"{source.stem}-{digest}.so"
     if not so.exists():
@@ -74,3 +85,45 @@ def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
                            f"({msg})")
+
+
+def call(source: Path, name: str, argtypes, x: torch.Tensor, *args) -> None:
+    """Launch ``name`` of ``source``'s library on ``x``'s device and current
+    stream (the last argument the C function takes); raise on error."""
+    lib = load_library(source)
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    with torch.cuda.device(x.device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    check_launch(lib, err, name)
+
+
+def check_b2sr(name: str, m, device: torch.device, t: int) -> None:
+    """Validate a B2SR operand of the row-product kernels."""
+    if m.tile_dim != t:
+        raise ValueError(f"{name} tile_dim {m.tile_dim} != {t}")
+    for part, a, want in (("tile_row_ptr", m.tile_row_ptr, torch.int32),
+                          ("tile_col_idx", m.tile_col_idx, torch.int32),
+                          ("bit_tiles", m.bit_tiles, torch.int32)):
+        if a.device != device:
+            raise ValueError(f"{name}.{part} is on {a.device}, expected "
+                             f"{device}")
+        if a.dtype != want:
+            raise TypeError(f"{name}.{part} must be {want}, got {a.dtype}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name}.{part} must be contiguous")
+    if m.bit_tiles.shape != (m.tile_col_idx.shape[0], t):
+        raise ValueError(f"{name}.bit_tiles shape {tuple(m.bit_tiles.shape)}"
+                         f" != ({m.tile_col_idx.shape[0]}, {t})")
+    if m.tile_row_ptr.shape[0] != m.n_tile_rows + 1:
+        raise ValueError(f"{name}.tile_row_ptr has "
+                         f"{m.tile_row_ptr.shape[0]} entries, expected "
+                         f"{m.n_tile_rows + 1}")
+
+
+def check_bitmap_width(n_tile_cols: int, what: str) -> None:
+    if n_tile_cols > ROW_BITMAP_MAX_TILE_COLS:
+        raise ValueError(
+            f"{what} has {n_tile_cols} tile columns; the kernel's shared-"
+            f"memory bitmap holds at most {ROW_BITMAP_MAX_TILE_COLS} "
+            f"(n_cols / tile_dim): use a larger tile_dim or the csr backend")
