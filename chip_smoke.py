@@ -6,11 +6,12 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py            # R-MAT scale 21, the default
     python3 chip_smoke.py --scale 16 # a quicker rehearsal
 
-It builds the port's CUDA kernels from ``src/repro_torch/kernels`` and
-drives BFS, SSSP, PageRank/PPR, CC, the generic mxv rows, triangle
-counting, boolean SpGEMM and k-hop reachability through the port's entry
-points. Each phase prints one JSON line; a failed phase
-exits non-zero.
+It builds the port's CUDA kernels from ``src/repro_torch/kernels`` (four
+``.cu`` sources, one ``nvcc`` each, in parallel) and drives BFS, SSSP,
+PageRank/PPR, CC, the generic mxv rows, triangle counting, boolean
+SpGEMM, k-hop reachability and the multi-source engine (msbfs, mskhop,
+ms_sssp, batched PPR, the query batcher) through the port's entry
+points. Each phase prints one JSON line; a failed phase exits non-zero.
 
   1. kernels: each kernel against its plain PyTorch version
      (``kernels/bmv/ref.py``) on the card, at tile dims 4/8/16/32 on small
@@ -62,21 +63,51 @@ exits non-zero.
      In phases 2-9 the kernels' launch counts are set to 0 just before
      the phase's ``b2sr_cuda`` runs and read just after; a kernel of the
      phase that never launched fails the run.
- 10. timing: per kernel of phases 2-6 the median time of one launch (CUDA
+ 10. msbfs: 64 sources (the bfs phase's 4 as columns 0-3, 60 more drawn
+     with a seed) on the same graph, push/pull/auto on ``b2sr_cuda``
+     (``spmm_bbb``) and ``csr``: levels, n_iterations and directions
+     equal; columns 0-3 equal SciPy's levels; 8 columns equal
+     single-source ``bfs``. Prints the batch's queries per second beside
+     single-source BFS's, and the time of ``GraphMatrix.fingerprint``.
+ 11. mskhop (k = 2) and ms_sssp (edge weights 1.0 and 0.5), the same
+     sources: equal to ``csr``, and to ``khop_frontier`` / ``sssp`` for 4
+     columns.
+ 12. batched_ppr: 32 seeds, 10 iterations, eps 0, on ``b2sr_cuda``
+     (``spmm_dense``) and ``csr``: within rtol 1e-4 of each other, of
+     single-seed ``ppr`` and, for 4 columns, of a float64 numpy power
+     iteration.
+ 13. batcher: one ``QueryBatcher.flush`` of 140 BFS and 60 PPR queries
+     with duplicates: every handle equals its msbfs / batched_ppr column
+     (PPR within rtol 1e-6), the dedup count is right; queries per
+     second.
+     In phases 10-13 the kernels' launch counts are set to 0 just before
+     the phase's ``b2sr_cuda`` runs and read just after.
+ 14. spmm_timing: ``spmm_bbb`` per launch on each msbfs (auto) iteration's
+     inputs and ``spmm_dense`` on each PPR iteration's, beside their
+     plain versions, the ``csr`` rows, one cuSPARSE SpMM
+     (``torch.sparse.mm`` of the float CSR by [n, 64] frontiers and by
+     [n, 32] and [n, 64] float X: the yardstick, which the port never
+     calls) and the bound.
+ 15. timing: per kernel of phases 2-6 the median time of one launch (CUDA
      events) on the main path's inputs (each iteration of one run),
      beside its plain version, the ``csr`` row, one cuSPARSE SpMV call
      (``torch.mv`` on the float CSR) where that computes the same
      function, and the bound (bytes over 3.35 TB/s or operations over
      67 TFLOP/s); the graph's B2SR and CSR bytes. Phases 7-8 time their
      own kernels the same way.
- 11. profile: one run per algorithm and BFS direction, triangle counting
-     and k-hop under ``torch.profiler``: device time by kernel and the
-     card's idle share.
+ 16. profile: one run per algorithm and BFS direction, triangle counting,
+     k-hop, msbfs (auto) and batched PPR under ``torch.profiler``: device
+     time by kernel and the card's idle share.
 
 The kernels phase also holds ``bmm_tc`` and ``spgemm_bbb`` against their
 plain versions on the small graphs at every tile dim (SpGEMM with no
 mask, a keep mask and its complement; TC on L and on a masked A·Aᵀ), and
-the triangle counts and A² patterns of those graphs against SciPy.
+the triangle counts and A² patterns of those graphs against SciPy;
+``spmm_bbb`` at 1, 33 and 70 sources (W = 1, 2, 3) and frontier
+densities 0.05% and 5%, unmasked, masked and complemented, bit for bit,
+and ``spmm_dense`` at D = 1, 32, 33, 64, bit for bit with small-integer
+X and within ``|y - y_plain| <= 1e-5 * (A·|X|)`` with random X, on the
+small graphs and the full graph.
 
 Then the card's name and power limit, the kernel table as one JSON line,
 and last ``{"ok": true, "device": {...}}``. Without CUDA it exits 1
@@ -131,7 +162,18 @@ KERNELS = {
                "src/repro_torch/kernels/bmm/bmm.cu"),
     "spgemm_bbb": ("src/repro/kernels/spgemm/spgemm.py:96",
                    "src/repro_torch/kernels/spgemm/spgemm.cu"),
+    "spmm_bbb": ("src/repro/kernels/spmm/spmm.py:61",
+                 "src/repro_torch/kernels/spmm/spmm.cu"),
+    "spmm_dense": ("src/repro/kernels/spmm/spmm.py:150",
+                   "src/repro_torch/kernels/spmm/spmm.cu"),
 }
+MS_SOURCES = 64                # msbfs / mskhop / ms_sssp batch
+PPR_SEEDS = 32                 # batched PPR batch
+MSKHOP_K = 2
+SPMM_SOURCES = (1, 33, 70)     # spmm_bbb checks: W = 1, 2, 3 source words
+SPMM_DENSITIES = (0.0005, 0.05)
+SPMM_WIDTHS = (1, 32, 33, 64)  # spmm_dense checks: D
+BATCH_QUERIES = (140, 60)      # batcher: BFS and PPR queries, duplicates in
 
 
 def emit(obj) -> None:
@@ -177,7 +219,8 @@ def wrapper(name: str):
     from repro_torch.kernels.bmm import bmm
     from repro_torch.kernels.bmv import bmv
     from repro_torch.kernels.spgemm import spgemm
-    for mod in (bmv, bmm, spgemm):
+    from repro_torch.kernels.spmm import spmm
+    for mod in (bmv, bmm, spgemm, spmm):
         if hasattr(mod, name):
             return getattr(mod, name)
     raise KeyError(name)
@@ -300,9 +343,12 @@ def phase_kernels(full_g, rng):
                 if not ok:
                     bad.append(["bmv_bff", name, m.tile_dim, mode, a_value])
     n_checks += check_row_products(cases[:-1], rng, max_err, bad)
+    spmm_checks, dense_ratio = check_spmm(cases, max_err, bad)
+    n_checks += spmm_checks
     emit({"phase": "kernels", "ok": not bad, "checks": n_checks,
           "max_abs_err": max_err,
           "bff_sum_err_over_bound": worst_sum_ratio,
+          "spmm_dense_err_over_bound": dense_ratio,
           "mismatches": bad[:10]})
     if bad:
         fail("kernels", f"{len(bad)} kernel/plain mismatches")
@@ -370,6 +416,60 @@ def check_row_products(cases, rng, max_err, bad) -> int:
             if err:
                 bad.append(["bmm_tc", name, t, case])
     return n_checks
+
+
+def check_spmm(cases, max_err, bad):
+    """spmm_bbb and spmm_dense against their plain versions on every case:
+    spmm_bbb bit for bit at W = 1, 2, 3 source words, unmasked, masked and
+    complemented (the plain masked result is the plain unmasked one ANDed
+    with the mask, as ``ref.spmm_bbb`` computes it); spmm_dense bit for bit
+    with small-integer X and within SUM_TOL · (A·|X|) with random X.
+    Returns (checks, worst error over the bound)."""
+    import torch
+    from repro_torch.core.b2sr import pack_frontier_matrix
+    from repro_torch.core.words import to_uint
+    from repro_torch.kernels.spmm import ref, spmm
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=DEVICE)
+
+    n_checks, worst = 0, 0.0
+    for name, g in cases:
+        m, t = g.b2sr, g.tile_dim
+        for s in SPMM_SOURCES:
+            mk = pack_frontier_matrix(rand(g.n_rows, s) < 0.5, t, g.n_rows)
+            for dens in SPMM_DENSITIES:
+                f = pack_frontier_matrix(rand(g.n_cols, s) < dens, t,
+                                         g.n_cols)
+                plain = ref.spmm_bbb(m, f)
+                for mask, comp in ((None, True), (mk, True), (mk, False)):
+                    got = spmm.spmm_bbb(m, f, mask, complement=comp)
+                    want = (plain if mask is None
+                            else plain & (~mk if comp else mk))
+                    sync()
+                    err = int((to_uint(got) - to_uint(want)).abs().max())
+                    max_err["spmm_bbb"] = max(max_err["spmm_bbb"], err)
+                    n_checks += 1
+                    if err:
+                        bad.append(["spmm_bbb", name, t, s, dens,
+                                    mask is not None, comp])
+        for d in SPMM_WIDTHS:
+            xi = torch.randint(-3, 4, (g.n_cols, d), generator=gen,
+                               device=DEVICE).float()
+            err = value_err(spmm.spmm_dense(m, xi), ref.spmm_dense(m, xi))
+            xf = torch.randn((g.n_cols, d), generator=gen, device=DEVICE)
+            got, want = spmm.spmm_dense(m, xf), ref.spmm_dense(m, xf)
+            bound = SUM_TOL * ref.spmm_dense(m, xf.abs()).double()
+            diff = (got.double() - want.double()).abs()
+            worst = max(worst, float((diff / bound.clamp_min(1e-30)).max()))
+            max_err["spmm_dense"] = max(max_err["spmm_dense"], err,
+                                        value_err(got, want))
+            n_checks += 2
+            if err or not bool((diff <= bound).all()):
+                bad.append(["spmm_dense", name, t, d, err])
+    return n_checks, worst
 
 
 def one_row(m, r: int):
@@ -1049,7 +1149,329 @@ def phase_timing(g, bfs_first, sources, launches):
     return table, csr_ms
 
 
-def phase_profile(g, source, road):
+def engine_sources(deg, bfs_sources):
+    """The engine phases' sources: the bfs phase's 4 as columns 0-3, then
+    distinct vertices with an edge, drawn with a seed."""
+    rng = np.random.default_rng(SEED + 2)
+    cand = np.setdiff1d(np.flatnonzero(deg), bfs_sources)
+    more = rng.choice(cand, MS_SOURCES - len(bfs_sources), replace=False)
+    return [*bfs_sources, *(int(v) for v in more)]
+
+
+def phase_msbfs(g, srcs, want):
+    """msbfs push/pull/auto on b2sr_cuda (spmm_bbb) and csr: levels,
+    iterations and direction traces equal; columns 0-3 equal SciPy's
+    levels; 8 columns equal single-source bfs on b2sr_cuda. Queries per
+    second of the batch beside single-source BFS."""
+    import torch
+    from repro_torch.algorithms import bfs
+    from repro_torch.engine import DEFAULT_PLANNER, msbfs
+
+    fp, fp_s = sync_time(g.fingerprint)       # the plan key's first read
+    gc = g.with_backend("csr")
+    reset_launches(("spmm_bbb",))
+    runs, wall = {}, {}
+    for d in DIRECTIONS:
+        runs["b2sr_cuda", d], wall["b2sr_cuda", d] = sync_time(
+            lambda: msbfs(g, srcs, direction=d))
+    launches = read_launches("msbfs", ("spmm_bbb",))
+    for d in DIRECTIONS:
+        runs["csr", d], wall["csr", d] = sync_time(
+            lambda: msbfs(gc, srcs, direction=d))
+    problems = []
+    for d in DIRECTIONS:
+        a, b = runs["b2sr_cuda", d], runs["csr", d]
+        if not torch.equal(a.levels, b.levels):
+            problems.append(f"levels != csr ({d})")
+        if (a.n_iterations, a.directions) != (b.n_iterations, b.directions):
+            problems.append(f"schedule != csr ({d})")
+        if not np.array_equal(a.levels[:, :len(want)].T.cpu().numpy(),
+                              want):
+            problems.append(f"columns 0-3 != scipy ({d})")
+    auto = runs["b2sr_cuda", "auto"]
+    cols = list(range(0, MS_SOURCES, MS_SOURCES // 8))
+    single_s = []
+    for i in cols:
+        one, sec = sync_time(lambda: bfs(g, srcs[i]))
+        single_s.append(sec)
+        if not torch.equal(auto.levels[:, i], one.levels):
+            problems.append(f"column {i} != bfs({srcs[i]})")
+    single = statistics.median(single_s)
+    batch = wall["b2sr_cuda", "auto"]
+    emit({"phase": "msbfs", "ok": not problems, "problems": problems[:10],
+          "n_sources": len(srcs), "launches": launches,
+          "n_iterations": {d: runs["b2sr_cuda", d].n_iterations
+                           for d in DIRECTIONS},
+          "auto_directions": list(auto.directions),
+          "wall_s": {f"{be}/{d}": wall[be, d]
+                     for be in ("b2sr_cuda", "csr") for d in DIRECTIONS},
+          "single_bfs_median_s": single,
+          "batch_wall_s": batch,
+          "single_source_batch_s": len(srcs) * single,
+          "qps": {"batched": len(srcs) / batch, "single_source": 1 / single},
+          "fingerprint_first_s": fp_s, "fingerprint": fp,
+          "plan_cache": DEFAULT_PLANNER.stats()})
+    if problems:
+        fail("msbfs", "; ".join(problems[:5]))
+    return auto, launches
+
+
+def phase_mskhop(g, srcs):
+    """mskhop (k = 2) on b2sr_cuda and csr, equal; 4 columns equal
+    single-source khop_frontier."""
+    import torch
+    from repro_torch.algorithms import khop_frontier
+    from repro_torch.engine import mskhop
+
+    res, wall, launches = run_both(
+        "mskhop", g, ("spmm_bbb",),
+        {"mskhop": lambda gg: mskhop(gg, srcs, MSKHOP_K)})
+    a = res["b2sr_cuda", "mskhop"]
+    problems = [] if torch.equal(a, res["csr", "mskhop"]) else ["!= csr"]
+    for i in range(4):
+        if not torch.equal(a[:, i], khop_frontier(g, srcs[i], MSKHOP_K)):
+            problems.append(f"column {i} != khop_frontier")
+    emit({"phase": "mskhop", "ok": not problems, "problems": problems,
+          "k": MSKHOP_K, "launches": launches,
+          "reached": [int(a[:, i].sum()) for i in range(4)],
+          "wall_s": {be: wall[be, "mskhop"] for be in ("b2sr_cuda", "csr")}})
+    if problems:
+        fail("mskhop", "; ".join(problems))
+    return launches
+
+
+def phase_ms_sssp(g, srcs):
+    """ms_sssp with edge weights 1.0 and 0.5 on b2sr_cuda and csr, equal;
+    4 columns equal single-source sssp."""
+    import torch
+    from repro_torch.algorithms import sssp
+    from repro_torch.engine import ms_sssp
+
+    weights = (1.0, 0.5)
+    res, wall, launches = run_both(
+        "ms_sssp", g, ("spmm_bbb",),
+        {w: (lambda gg, w=w: ms_sssp(gg, srcs, edge_weight=w))
+         for w in weights})
+    problems = []
+    for w in weights:
+        a, b = res["b2sr_cuda", w], res["csr", w]
+        if not torch.equal(a.distances, b.distances) or \
+                a.n_iterations != b.n_iterations:
+            problems.append(f"!= csr (weight {w})")
+        for i in range(4):
+            one = sssp(g, srcs[i], edge_weight=w)
+            if not torch.equal(a.distances[:, i], one.distances):
+                problems.append(f"column {i} != sssp (weight {w})")
+    emit({"phase": "ms_sssp", "ok": not problems, "problems": problems,
+          "launches": launches,
+          "n_iterations": res["b2sr_cuda", 1.0].n_iterations,
+          "wall_s": {f"{be}/{w}": wall[be, w] for be in ("b2sr_cuda", "csr")
+                     for w in weights}})
+    if problems:
+        fail("ms_sssp", "; ".join(problems))
+    return launches
+
+
+def phase_batched_ppr(g, adj, seeds):
+    """batched_ppr (10 iterations, eps 0) on b2sr_cuda (spmm_dense) and
+    csr: within RANK_RTOL of each other, of single-seed ppr and, for 4
+    columns, of a float64 numpy power iteration."""
+    from repro_torch.algorithms import ppr
+    from repro_torch.engine import batched_ppr
+
+    res, wall, launches = run_both(
+        "batched_ppr", g, ("spmm_dense",),
+        {"ppr": lambda gg: batched_ppr(gg, seeds, max_iters=10, eps=0.0)})
+    a, b = res["b2sr_cuda", "ppr"], res["csr", "ppr"]
+    got = a.ranks.cpu().numpy().astype(np.float64)
+    problems, rel = [], {}
+
+    def close(label, x, y):
+        nz = y != 0
+        rel[label] = float(np.max(np.abs(x - y)[nz] / np.abs(y[nz])))
+        if not np.allclose(x, y, rtol=RANK_RTOL, atol=0):
+            problems.append(label)
+
+    close("csr", got, b.ranks.cpu().numpy().astype(np.float64))
+    for i in range(4):
+        one = ppr(g, seeds[i], max_iters=10, eps=0.0).ranks
+        close(f"ppr/{i}", got[:, i], one.cpu().numpy().astype(np.float64))
+        restart = np.zeros(g.n_rows)
+        restart[seeds[i]] = 1.0
+        close(f"numpy/{i}", got[:, i],
+              numpy_ranks(adj, a.n_iterations, restart=restart))
+    if a.n_iterations != b.n_iterations:
+        problems.append("n_iterations != csr")
+    emit({"phase": "batched_ppr", "ok": not problems, "problems": problems,
+          "n_seeds": len(seeds), "n_iterations": a.n_iterations,
+          "launches": launches, "max_rel_err": rel,
+          "wall_s": {be: wall[be, "ppr"] for be in ("b2sr_cuda", "csr")}})
+    if problems:
+        fail("batched_ppr", "; ".join(problems))
+    return a, launches
+
+
+def phase_batcher(g, srcs, levels, ranks):
+    """One flush of BFS and PPR queries with duplicates through the
+    QueryBatcher: every handle equals its msbfs / batched_ppr column, and
+    the dedup count is right."""
+    import torch
+    from repro_torch.engine import QueryBatcher
+
+    rng = np.random.default_rng(SEED + 3)
+    n_bfs, n_ppr = BATCH_QUERIES
+    bfs_q = [int(v) for v in rng.choice(srcs, n_bfs)]
+    ppr_q = [int(v) for v in rng.choice(srcs[:PPR_SEEDS], n_ppr)]
+    b = QueryBatcher()
+    reset_launches(("spmm_bbb", "spmm_dense"))
+
+    def serve():
+        hb = [b.bfs(g, s) for s in bfs_q]
+        hp = [b.ppr(g, s, max_iters=10, eps=0.0) for s in ppr_q]
+        b.flush()
+        return hb, hp
+
+    (hb, hp), wall = sync_time(serve)
+    launches = read_launches("batcher", ("spmm_bbb", "spmm_dense"))
+    problems = []
+    for s, h in zip(bfs_q, hb):
+        if not torch.equal(h.result(), levels[:, srcs.index(s)]):
+            problems.append(f"bfs {s} != msbfs column")
+    worst = 0.0
+    for s, h in zip(ppr_q, hp):
+        want = ranks[:, srcs.index(s)]
+        worst = max(worst, float(((h.result() - want).abs()
+                                  / want.abs().clamp_min(1e-30)).max()))
+        if not torch.allclose(h.result(), want, rtol=1e-6, atol=0):
+            problems.append(f"ppr {s} != batched_ppr column")
+    dedup = (n_bfs - len(set(bfs_q))) + (n_ppr - len(set(ppr_q)))
+    if b.n_deduped != dedup:
+        problems.append(f"deduped {b.n_deduped} != {dedup}")
+    emit({"phase": "batcher", "ok": not problems, "problems": problems[:10],
+          "queries": n_bfs + n_ppr, "groups": b.n_launches,
+          "deduped": b.n_deduped, "launches": launches, "wall_s": wall,
+          "qps": (n_bfs + n_ppr) / wall, "ppr_max_rel_diff": worst})
+    if problems:
+        fail("batcher", "; ".join(problems[:5]))
+    return launches
+
+
+def bbb_bytes_ops(m, f, mask):
+    """Bytes and operations spmm_bbb needs on these inputs: row pointers,
+    every column index, the words of each tile whose column holds a
+    frontier bit and whose tile-row an allowed bit, F, the mask and the
+    output once; one OR per (set bit of those tiles, source word)."""
+    import torch
+    from repro_torch.core.b2sr import tile_rows
+    from repro_torch.core.words import popcount
+    t, w = m.tile_dim, f.shape[2]
+    col_live = (f != 0).flatten(1).any(1)
+    row_live = (~mask != 0).flatten(1).any(1)
+    read = col_live[m.tile_col_idx.long()] & row_live[tile_rows(m)]
+    n_read = int(read.sum())
+    set_bits = int(popcount(m.bit_tiles[read]).sum(dtype=torch.int64))
+    nbytes = 4 * ((m.n_tile_rows + 1) + m.n_tiles + n_read * t + f.numel()
+                  + 2 * mask.numel())
+    return nbytes, set_bits * w
+
+
+def dense_bytes_ops(m, d, nnz):
+    """spmm_dense reads every tile (X is dense): pointers, column indices,
+    tiles, X and Y once each; one add per (set bit, column)."""
+    t = m.tile_dim
+    nbytes = 4 * ((m.n_tile_rows + 1) + m.n_tiles * (1 + t)
+                  + (m.n_cols + m.n_rows) * d)
+    return nbytes, nnz * d
+
+
+def spmm_timing(g, levels, n_iterations, seeds):
+    """spmm_bbb per launch on each iteration's inputs of the msbfs (auto)
+    run, spmm_dense on each PPR iteration's input, beside their plain
+    versions, the csr rows and one cuSPARSE SpMM (``torch.sparse.mm`` of
+    the float CSR by an [n, S] float matrix), the yardstick."""
+    import torch
+    from repro_torch.core import csr as csr_mod
+    from repro_torch.core.b2sr import pack_frontier_matrix
+    from repro_torch.core.descriptor import Descriptor
+    from repro_torch.core.operands import FrontierBatch
+    from repro_torch.engine import batched_ppr
+    from repro_torch.kernels.spmm import ref, spmm
+
+    gt = g.transposed()
+    gct = gt.with_backend("csr")
+    m, t, n = gt.b2sr, gt.tile_dim, gt.n_rows
+    spm = csr_mod.to_sparse(gt.csr)
+    items = spmm.work_items(m, spmm.BBB_ITEM_WORK)
+    bbb = []
+    for it in range(n_iterations):
+        f = pack_frontier_matrix(levels == it, t, n)
+        vis = pack_frontier_matrix((levels >= 0) & (levels <= it), t, n)
+        fb = FrontierBatch.from_words(f, n, levels.shape[1], t)
+        mb = FrontierBatch.from_words(vis, n, levels.shape[1], t)
+        dense_f = (levels == it).float()
+        bbb.append({
+            "it": it,
+            "ms": event_ms(lambda: spmm.spmm_bbb(m, f, vis, items=items),
+                           reps=5),
+            "plain_ms": event_ms(lambda: ref.spmm_bbb(m, f, vis), reps=1),
+            "csr_row_ms": event_ms(lambda: gct.mxm(fb, desc=Descriptor(
+                mask=mb, complement=True)), reps=3),
+            "library_ms": event_ms(lambda: torch.sparse.mm(spm, dense_f),
+                                   reps=3),
+            **bound_row(*bbb_bytes_ops(m, f, vis))})
+    safe_deg = torch.where(g.degrees() == 0, 1.0, g.degrees())[:, None]
+    dense_items = spmm.work_items(m, spmm.DENSE_ITEM_WORK, by_bits=True)
+    dense = []
+    for k in range(10):
+        x = (batched_ppr(g, seeds, max_iters=k, eps=0.0).ranks
+             / safe_deg).contiguous()
+        dense.append({
+            "it": k, "d": x.shape[1],
+            "ms": event_ms(lambda: spmm.spmm_dense(m, x, items=dense_items),
+                           reps=5),
+            "plain_ms": (event_ms(lambda: ref.spmm_dense(m, x), reps=1)
+                         if k in (0, 9) else None),
+            "csr_row_ms": event_ms(lambda: gct.mxm(x), reps=3),
+            "library_ms": event_ms(lambda: torch.sparse.mm(spm, x), reps=3),
+            **bound_row(*dense_bytes_ops(m, x.shape[1], g.nnz))})
+    x64 = torch.rand((n, 64), generator=torch.Generator(
+        device=DEVICE).manual_seed(SEED), device=DEVICE)
+    wide = {"ms": event_ms(lambda: spmm.spmm_dense(m, x64,
+                                                   items=dense_items)),
+            "library_ms": event_ms(lambda: torch.sparse.mm(spm, x64)),
+            **bound_row(*dense_bytes_ops(m, 64, g.nnz))}
+    emit({"phase": "spmm_timing", "ok": True, "spmm_bbb": bbb,
+          "spmm_dense": dense, "spmm_dense_d64": wide,
+          "items": {"spmm_bbb": items.n_items,
+                    "spmm_dense": dense_items.n_items,
+                    "spmm_dense_cut_rows": int(dense_items.cut_row.numel())}})
+
+    def mean(rows, key):
+        vals = [r[key] for r in rows if r[key] is not None]
+        return statistics.fmean(vals)
+
+    table = []
+    for name, rows, inputs in (
+            ("spmm_bbb", bbb, f"msbfs (auto) of {levels.shape[1]} sources, "
+                              f"mean over its iterations; library: "
+                              f"cuSPARSE SpMM of the unpacked frontiers"),
+            ("spmm_dense", dense, f"batched PPR of {len(seeds)} seeds, mean "
+                                  f"over 10 iterations; library: cuSPARSE "
+                                  f"SpMM")):
+        b_bytes = mean(rows, "bytes") / HBM_BYTES_PER_S
+        b_ops = mean(rows, "ops") / LANE_OPS_PER_S
+        table.append({"name": name, "ms": mean(rows, "ms"),
+                      "plain_ms": mean(rows, "plain_ms"),
+                      "bound_ms": mean(rows, "bound_ms"),
+                      "bound_by": "bytes" if b_bytes >= b_ops
+                      else "operations",
+                      "library_ms": mean(rows, "library_ms"),
+                      "csr_row_ms": mean(rows, "csr_row_ms"),
+                      "inputs": inputs})
+    return table
+
+
+def phase_profile(g, source, road, srcs):
     """Device busy time of one run per algorithm and BFS direction
     (torch.profiler, CUPTI): kernel time by name, and the share of the
     wall time the card idled."""
@@ -1058,6 +1480,7 @@ def phase_profile(g, source, road):
     from repro_torch.algorithms import (bfs, connected_components,
                                         khop_reachability, pagerank, sssp,
                                         triangle_count)
+    from repro_torch.engine import batched_ppr, msbfs
 
     runs = {f"bfs/{d}": (lambda d=d: bfs(g, source, direction=d))
             for d in DIRECTIONS}
@@ -1066,6 +1489,9 @@ def phase_profile(g, source, road):
     runs["cc/auto"] = lambda: connected_components(g, direction="auto")
     runs["tc"] = lambda: triangle_count(g)
     runs["khop/road"] = lambda: khop_reachability(road, KHOP_K)
+    runs["msbfs/auto"] = lambda: msbfs(g, srcs, direction="auto")
+    runs["batched_ppr"] = lambda: batched_ppr(g, srcs[:PPR_SEEDS],
+                                              max_iters=10, eps=0.0)
     out = {}
     for name, fn in runs.items():
         with profile(activities=[ProfilerActivity.CPU,
@@ -1156,10 +1582,26 @@ def main() -> int:
     road, khop_launches, hop_err = phase_khop()
     spgemm_row["launches"] += khop_launches["spgemm_bbb"]
 
+    srcs = engine_sources(deg, sources)
+    ms_auto, ls = phase_msbfs(g, srcs, want)
+    bbb_launches = ls["spmm_bbb"]
+    bbb_launches += phase_mskhop(g, srcs)["spmm_bbb"]
+    bbb_launches += phase_ms_sssp(g, srcs)["spmm_bbb"]
+    ppr_res, ls = phase_batched_ppr(g, adj, srcs[:PPR_SEEDS])
+    dense_launches = ls["spmm_dense"]
+    ls = phase_batcher(g, srcs, ms_auto.levels, ppr_res.ranks)
+    bbb_launches += ls["spmm_bbb"]
+    dense_launches += ls["spmm_dense"]
+    del ppr_res
+    spmm_rows = spmm_timing(g, ms_auto.levels, ms_auto.n_iterations,
+                            srcs[:PPR_SEEDS])
+    for row, n_launches in zip(spmm_rows, (bbb_launches, dense_launches)):
+        row["launches"] = n_launches
+
     table, csr_ms = phase_timing(g, first, sources, launches)
     for row in table:
         row["csr_row_ms"] = csr_ms
-    table += [tc_row, spgemm_row]
+    table += [tc_row, spgemm_row, *spmm_rows]
     for row in table:
         src = KERNELS[row["name"]]
         row.update(route="cuda", replaces=src[0], source=src[1],
@@ -1168,7 +1610,7 @@ def main() -> int:
     spgemm_row["max_abs_err"] = max(spgemm_row["max_abs_err"], hop_err)
     order = list(KERNELS)
     table.sort(key=lambda r: order.index(r["name"]))
-    phase_profile(g, sources[0], road)
+    phase_profile(g, sources[0], road, srcs)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -57,14 +57,20 @@ def bfs(g: GraphMatrix, source, max_iters: Optional[int] = None,
     ``direction`` is ``"auto"`` (push/pull switching), ``"push"``,
     ``"pull"`` or a :class:`DirectionConfig`. All modes are bit-exact;
     the schedule run is recorded on ``BFSResult.directions``.
+
+    An *array* of sources runs through the multi-source engine (one wide
+    frontier-matrix traversal) and returns its ``MSBFSResult`` with
+    ``levels[n, S]``, column ``s`` equal to the run from ``source[s]``.
     """
     cfg = direction_mod.as_config(direction)
     n = g.n_rows
     max_iters = _check_max_iters(max_iters, n)
     if np.ndim(source) > 0:
-        raise NotImplementedError(
-            "batched sources run through the multi-source engine, which is "
-            "not ported yet (ROADMAP Queue 1 item 6)")
+        if row_chunk is not None:
+            raise ValueError("row_chunk is not supported for batched "
+                             "sources (the engine plans its own loop)")
+        from repro_torch.engine.queries import msbfs
+        return msbfs(g, source, max_iters=max_iters, direction=cfg)
     source = int(source)
     if not 0 <= source < n:
         raise ValueError(f"source {source} out of range for n={n}")

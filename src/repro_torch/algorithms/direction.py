@@ -81,21 +81,33 @@ def initial_direction(cfg: DirectionConfig) -> int:
 
 
 def next_direction(cfg: DirectionConfig, cur: int, locked: bool, nnz_f: int,
-                   nnz_visited: int, n: int,
-                   avg_degree: float) -> Tuple[int, bool]:
+                   nnz_visited: int, n: int, avg_degree: float,
+                   batch: Optional[int] = None) -> Tuple[int, bool]:
     """One hysteresis step: ``(direction, locked)`` for the next iteration.
 
     float32 throughout, with the reference's weak-typed Python constants
-    rounded to float32 where they meet a float32 operand.
+    rounded to float32 where they meet a float32 operand. ``batch`` is
+    the number of live sources of a multi-source traversal, whose counts
+    are summed over the batch: it scales them back to per-query
+    magnitudes, and the reference holds it as a float32 array, so
+    ``avg_degree / batch`` and the count quotients round in float32 too.
+    ``None`` is the single-source step, where the reference divides by
+    a Python ``1`` and nothing extra is rounded.
     """
     if cfg.mode != "auto":
         return (PULL if cfg.mode == "pull" else PUSH), locked
     f = _F32(nnz_f)
-    m_f = f * _F32(avg_degree)
-    unvisited = np.maximum(_F32(n) - _F32(nnz_visited), _F32(0))
-    m_u = unvisited * _F32(avg_degree)
+    v = _F32(nnz_visited)
+    deg = _F32(avg_degree)
+    if batch is not None:
+        b = _F32(batch)
+        f_q, v_q, m_f = f / b, v / b, f * (deg / b)
+    else:
+        f_q, v_q, m_f = f, v, f * deg
+    unvisited = np.maximum(_F32(n) - v_q, _F32(0))
+    m_u = unvisited * deg
     go_pull = cur == PUSH and not locked and bool(m_f > _F32(cfg.alpha) * m_u)
-    go_push = cur == PULL and bool(f < _F32(n / cfg.beta))
+    go_push = cur == PULL and bool(f_q < _F32(n / cfg.beta))
     new = PULL if go_pull else (PUSH if go_push else cur)
     return new, locked or go_push
 

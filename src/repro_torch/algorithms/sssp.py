@@ -31,11 +31,19 @@ class SSSPResult:
 def sssp(g: GraphMatrix, source, edge_weight: float = 1.0,
          max_iters: Optional[int] = None,
          row_chunk: Optional[int] = None) -> SSSPResult:
-    """Uniform-weight SSSP from one ``source`` along out-edges."""
+    """Uniform-weight SSSP from one ``source`` along out-edges.
+
+    An *array* of sources runs through the multi-source engine and
+    returns ``MSSSSPResult`` with ``distances[n, S]`` (equal to the looped
+    runs for dyadic edge weights).
+    """
     if np.ndim(source) > 0:
-        raise NotImplementedError(
-            "batched sources run through the multi-source engine, which is "
-            "not ported yet (ROADMAP Queue 1 item 6)")
+        if row_chunk is not None:
+            raise ValueError("row_chunk is not supported for batched "
+                             "sources (the engine plans its own loop)")
+        from repro_torch.engine.queries import ms_sssp
+        return ms_sssp(g, source, edge_weight=edge_weight,
+                       max_iters=max_iters)
     n = g.n_rows
     source = int(source)
     if not 0 <= source < n:

@@ -14,6 +14,10 @@ The reference's ``GraphMatrix`` keeps only its ELL views, so the B2SR is
 derived from the ELL when its own keys are absent. The same keys with
 the prefix ``t.`` give the transpose. ``meta`` holds ``tile_dim``,
 ``n_rows``, ``n_cols`` and ``nnz`` of the forward orientation.
+
+``frontier_from_reference`` takes the reference's packed frontier words
+(``np.uint32[tiles, t, W]``) into a port ``FrontierBatch``, so one
+operand can be fed to both packages.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from repro_torch.core import csr as csr_mod
 from repro_torch.core.b2sr import B2SR, B2SRBucketedEll, B2SREll, b2sr_to_coo
 from repro_torch.core.graphblas import GraphMatrix, Orientation
+from repro_torch.core.operands import FrontierBatch
 from repro_torch.core.words import from_numpy_u32
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -113,3 +118,18 @@ def from_reference(arrays: Arrays, meta: Mapping, device: DeviceLike = None,
     return GraphMatrix(n_rows=n_rows, n_cols=n_cols, nnz=int(meta["nnz"]),
                        tile_dim=t, fwd=orient[""], bwd=orient["t."],
                        backend=backend)
+
+
+def frontier_from_reference(words: np.ndarray, n: int, n_sources: int,
+                            tile_dim: int,
+                            device: DeviceLike = None) -> FrontierBatch:
+    """The reference's frontier words (``np.uint32[ceil(n/t), t, W]``,
+    ``pack_frontier_matrix``) as a port :class:`FrontierBatch` of the same
+    bits on ``device`` (None = CUDA)."""
+    arr = np.asarray(words, dtype=np.uint32)
+    if arr.ndim != 3 or arr.shape[1] != tile_dim:
+        raise ValueError(f"frontier words of shape {arr.shape} are not "
+                         f"[tiles, {tile_dim}, W]")
+    return FrontierBatch.from_words(from_numpy_u32(arr,
+                                                   resolve_device(device)),
+                                    n, n_sources, tile_dim)

@@ -274,6 +274,41 @@ def unpack_bitvector(words: torch.Tensor, tile_dim: int, n: int,
     return unpack_bits(words, tile_dim).reshape(-1)[:n].to(dtype)
 
 
+#: Frontier *matrices* (the multi-source engine): the source axis packs
+#: into whole 32-bit words whatever the tile_dim; tile_dim groups the
+#: node axis, so a B2SR scheme gathers one ``[t, W]`` panel per tile column.
+SOURCE_WORD_BITS = 32
+
+
+def pack_frontier_matrix(x: torch.Tensor, tile_dim: int,
+                         n_rows: Optional[int] = None) -> torch.Tensor:
+    """Binarize + bit-pack a batch of frontiers ``[n, S]`` along the S axis.
+
+    Returns ``int32[ceil(n/t), t, W]`` with ``W = ceil(S/32)``: entry
+    ``[T, r, w]`` packs sources ``32w .. 32w+31`` of node ``T*t + r``,
+    LSB first, so source bit 31 of a word lands in the sign bit. The
+    trailing node and source pads are zero bits.
+    """
+    t = tile_dim
+    n = x.shape[0] if n_rows is None else n_rows
+    s = x.shape[1]
+    n_tiles = ceil_div(n, t)
+    w = ceil_div(max(s, 1), SOURCE_WORD_BITS)
+    xb = torch.nn.functional.pad(
+        (x != 0).to(torch.int32),
+        (0, w * SOURCE_WORD_BITS - s, 0, n_tiles * t - x.shape[0]))
+    return pack_bits(xb.view(n_tiles, t, w, SOURCE_WORD_BITS))
+
+
+def unpack_frontier_matrix(words: torch.Tensor, n: int, n_sources: int,
+                           dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`pack_frontier_matrix`: ``[T, t, W]`` -> ``[n, S]``."""
+    tiles, t, w = words.shape
+    bits = unpack_bits(words, SOURCE_WORD_BITS)            # [T, t, W, 32]
+    return bits.reshape(tiles * t, w * SOURCE_WORD_BITS)[
+        :n, :n_sources].to(dtype)
+
+
 def unpack_tiles(tiles: torch.Tensor, tile_dim: int,
                  dtype=torch.float32) -> torch.Tensor:
     """Words ``[..., t]`` -> dense 0/1 ``[..., t, t]`` (row, col)."""

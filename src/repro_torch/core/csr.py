@@ -4,6 +4,7 @@ The torch twin of ``repro.core.csr``: CSR pointers plus a COO row-index
 array, so SpMV is a gather plus a segment reduction (``scatter_reduce``)
 over edges.
 
+The product with a dense matrix (``spmm``) is one ``torch.sparse.mm``.
 The products over two matrices stay sparse, where the reference's
 densify: the boolean SpGEMM is a ``torch.sparse`` CSR product (cuSPARSE
 on the card) over row chunks of bounded work, and the triangle sum
@@ -78,20 +79,29 @@ def mxv_masked(m: CSRMatrix, x: torch.Tensor, mask: torch.Tensor,
     return torch.where(keep, y, semiring.identity_for(y.dtype, y.device))
 
 
+def spmm(m: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for dense X ``[n_cols, d]`` (arithmetic semiring): one
+    ``torch.sparse.mm`` of the CSR (cuSPARSE SpMM on the card)."""
+    return torch.sparse.mm(to_sparse(m, dtype=x.dtype), x)
+
+
 #: Work of one row chunk of the sparse products: wedges (pairs of
 #: consecutive edges), each at most one product entry.
 CHUNK_WEDGES = 1 << 27
 
 
-def to_sparse(m: CSRMatrix, rows: slice = slice(None)) -> torch.Tensor:
-    """A ``torch.sparse_csr_tensor`` of the rows ``rows`` (a step-1 slice)."""
+def to_sparse(m: CSRMatrix, rows: slice = slice(None),
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A ``torch.sparse_csr_tensor`` of the rows ``rows`` (a step-1 slice),
+    its values in ``dtype``."""
     r0, r1, _ = rows.indices(m.n_rows)
     lo, hi = int(m.row_ptr[r0]), int(m.row_ptr[r1])
     with warnings.catch_warnings():     # "sparse CSR support is in beta"
         warnings.simplefilter("ignore", UserWarning)
         return torch.sparse_csr_tensor(
-            m.row_ptr[r0:r1 + 1] - lo, m.col_idx[lo:hi], m.values[lo:hi],
-            size=(r1 - r0, m.n_cols), check_invariants=False)
+            m.row_ptr[r0:r1 + 1] - lo, m.col_idx[lo:hi],
+            m.values[lo:hi].to(dtype), size=(r1 - r0, m.n_cols),
+            check_invariants=False)
 
 
 def to_dense(m: CSRMatrix) -> torch.Tensor:

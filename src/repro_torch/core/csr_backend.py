@@ -4,11 +4,14 @@ The GraphBLAST/cuSPARSE stand-in: the packed operand is unpacked to
 float32, multiplied on the float CSR twin and repacked. Bucketing never
 applies to CSR, so every entry registers for both ``bucketed`` flags.
 
-The graph rows: the boolean SpGEMM returns a B2SR built from the sparse
-product (``csr.mxm_bool``) and the triangle sum intersects sorted rows
-(``csr.tri_sum``); both stay sparse where the reference densifies to
-``[n, n]``. The count rows return the dense float32 counts, as the
-reference's do, so they are for small sizes only.
+The dense and frontier mxm rows are one ``torch.sparse.mm`` of the CSR
+(``csr.spmm``), the frontiers unpacked to float32 ``[n, 32W]`` and the
+product's entries > 0 packed back. The graph rows: the boolean SpGEMM
+returns a B2SR built from the sparse product (``csr.mxm_bool``) and the
+triangle sum intersects sorted rows (``csr.tri_sum``); both stay sparse
+where the reference densifies to ``[n, n]``. The count rows return the
+dense float32 counts, as the reference's do, so they are for small sizes
+only.
 """
 
 from __future__ import annotations
@@ -16,8 +19,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import csr as csr_mod
-from repro_torch.core.b2sr import pack_bitvector, unpack_bitvector
+from repro_torch.core.b2sr import (pack_bitvector, pack_frontier_matrix,
+                                   unpack_bitvector, unpack_frontier_matrix)
 from repro_torch.core.dispatch import BOTH, apply_output_mask, register
+from repro_torch.core.ops import apply_frontier_mask
 from repro_torch.core.semiring import ARITHMETIC
 
 
@@ -60,6 +65,35 @@ def _mxv_count_masked(g, xw, call):
     y = _mxv_count(g, xw, call)
     return apply_output_mask(y, call.mask, call.complement,
                              torch.zeros((), dtype=call.out_dtype))
+
+
+# -- mxm over dense and frontier operands --------------------------------------
+
+@register("mxm", "dense", "full", "csr", bucketed=BOTH, masked=False)
+def _mxm_dense(g, x, call):
+    return csr_mod.spmm(g.csr, x)
+
+
+@register("mxm", "dense", "full", "csr", bucketed=BOTH, masked=True)
+def _mxm_dense_masked(g, x, call):
+    y = csr_mod.spmm(g.csr, x)
+    return apply_output_mask(y, call.mask, call.complement,
+                             call.semiring.identity_for(y.dtype))
+
+
+@register("mxm", "frontier", "bin", "csr", bucketed=BOTH)
+def _mxm_frontier(g, fw, call):
+    x = unpack_frontier_matrix(fw, g.n_cols, fw.shape[2] * 32, torch.float32)
+    yp = pack_frontier_matrix(csr_mod.spmm(g.csr, x) > 0, g.tile_dim,
+                              g.n_rows)
+    if call.mask is not None:
+        yp = apply_frontier_mask(yp, call.mask, call.complement)
+    return yp
+
+
+@register("mxm_pull", "frontier", "bin", "csr", bucketed=BOTH, masked=True)
+def _mxm_pull(g, fw, call):
+    return _mxm_frontier(g, fw, call)
 
 
 # -- mxm over graph operands: Table III ---------------------------------------

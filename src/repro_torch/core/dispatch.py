@@ -6,12 +6,13 @@ keyed by the full Table II/III coordinate (the reference's key):
     (op, rhs, out, backend, bucketed, masked, sharded)
 
   op        "mxv" | "mxm" | "mxm_sum" (the fused masked Σ mask ⊙ (A·B)
-            reduction of ``tri_count``, masked-only) | "mxv_pull" (the
-            early-exit pull traversal row, masked-only, selected by
+            reduction of ``tri_count``, masked-only) | "mxv_pull" /
+            "mxm_pull" (the pull traversal rows over a ``BitVector`` /
+            ``FrontierBatch``, masked-only, selected by
             ``Descriptor(direction="pull")``)
   rhs       operand kind of the right-hand side: "dense" | "bitvec" |
-            "graph" (a GraphMatrix) | "tri" (the memoized lower-triangle
-            operand of ``tri_count``)
+            "frontier" (a FrontierBatch) | "graph" (a GraphMatrix) | "tri"
+            (the memoized lower-triangle operand of ``tri_count``)
   out       "bin" (packed words; a B2SR for SpGEMM) | "full" (dense
             values)
   backend   "b2sr" (torch word schemes, ``repro_torch.core.ops``)
@@ -39,13 +40,13 @@ from repro_torch.core.semiring import Semiring
 
 Key = Tuple[str, str, str, str, bool, bool, bool]
 
-OPS = ("mxv", "mxm", "mxm_sum", "mxv_pull")
+OPS = ("mxv", "mxm", "mxm_sum", "mxv_pull", "mxm_pull")
 
 #: Ops whose rows exist only with a mask: the fused TC reduction is
 #: masked by construction, and pull without the visited mask has nothing
 #: to exit on.
-MASKED_ONLY_OPS = ("mxm_sum", "mxv_pull")
-RHS_KINDS = ("dense", "bitvec", "graph", "tri")
+MASKED_ONLY_OPS = ("mxm_sum", "mxv_pull", "mxm_pull")
+RHS_KINDS = ("dense", "bitvec", "frontier", "graph", "tri")
 OUT_KINDS = ("bin", "full")
 
 _REGISTRY: Dict[Key, Callable] = {}
@@ -54,7 +55,8 @@ _BACKEND_MODULES: Dict[str, Tuple[str, ...]] = {
     "b2sr": ("repro_torch.core.ops",),
     "b2sr_cuda": ("repro_torch.kernels.bmv.ops",
                   "repro_torch.kernels.bmm.ops",
-                  "repro_torch.kernels.spgemm.ops"),
+                  "repro_torch.kernels.spgemm.ops",
+                  "repro_torch.kernels.spmm.ops"),
     "csr": ("repro_torch.core.csr_backend",),
 }
 BACKENDS = tuple(_BACKEND_MODULES)

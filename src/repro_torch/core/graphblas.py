@@ -1,7 +1,9 @@
 """High-level GraphBLAS matrix object: the generic operation API.
 
 The torch twin of ``repro.core.graphblas.GraphMatrix`` for the mxv rows
-and the mxm rows over graph operands. A ``GraphMatrix`` holds, for each
+and the mxm rows over graph, dense and ``FrontierBatch`` operands, with
+the multi-source entry points ``msbfs`` and ``ppr`` (``engine``). A
+``GraphMatrix`` holds, for each
 stored orientation (the matrix and its transpose), the B2SR arrays and
 the float CSR baseline twin, all on one device. ``mxv`` and ``mxm``
 resolve the Table II/III row from the operand type and the semiring and
@@ -26,7 +28,8 @@ twin the same way, from its tiles, on the first row that reads it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import hashlib
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
@@ -38,7 +41,8 @@ from repro_torch.core.b2sr import (B2SR, B2SRBucketedEll, B2SREll,
                                    combine_tiles, pack_bitvector)
 from repro_torch.core.descriptor import _UNSET, Descriptor
 from repro_torch.core.dispatch import OpCall
-from repro_torch.core.operands import BitVector, check_operand, operand_kind
+from repro_torch.core.operands import (BitVector, FrontierBatch,
+                                      check_operand, operand_kind)
 from repro_torch.core.semiring import ARITHMETIC, BOOLEAN, Semiring
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -55,6 +59,9 @@ class Orientation:
         self._csr = csr
         self.ell: Optional[B2SREll] = None
         self.buckets: Optional[B2SRBucketedEll] = None
+        #: what the ``b2sr_cuda`` rows derive from ``b2sr`` once (the
+        #: SpMM kernels' work items), by name
+        self.cache: Dict[str, Any] = {}
 
     @property
     def csr(self) -> csr_mod.CSRMatrix:
@@ -147,6 +154,7 @@ class GraphMatrix:
     use_buckets: bool = True
     degrees_cache: Optional[torch.Tensor] = None
     transposed_cache: Optional["GraphMatrix"] = None
+    fingerprint_cache: Optional[str] = None
     tri_cache: Optional[LowerTriangle] = None
 
     # -- constructors -------------------------------------------------------
@@ -219,7 +227,7 @@ class GraphMatrix:
         gt = dataclasses.replace(self, fwd=self.bwd, bwd=self.fwd,
                                  n_rows=self.n_cols, n_cols=self.n_rows,
                                  degrees_cache=None, transposed_cache=self,
-                                 tri_cache=None)
+                                 fingerprint_cache=None, tri_cache=None)
         self.transposed_cache = gt
         return gt
 
@@ -296,7 +304,8 @@ class GraphMatrix:
         dispatch.check_semiring("mxv", kind, semiring)
         out_kind = dispatch.out_kind_for(semiring, kind)
         call = OpCall(
-            semiring=semiring, mask=self._norm_mask(desc.mask, out_kind),
+            semiring=semiring,
+            mask=self._norm_mask(desc.mask, kind, out_kind),
             complement=desc.complement, row_chunk=desc.row_chunk,
             a_value=a_value,
             out_dtype=out_dtype if out_dtype is not None else torch.float32)
@@ -331,12 +340,20 @@ class GraphMatrix:
           arithmetic            ``[n_rows, n_cols]`` common-neighbour
                                 counts (int32 on the bit backends,
                                 float32 on ``csr``, as in the reference)
+          dense matrix X        bin·full→full widened: ``Y = A @ X``
+                                ``[n_rows, d]`` (batched PageRank)
+          ``FrontierBatch`` F   bin·bin→bin widened: one traversal for S
+                                packed frontiers (the multi-source
+                                engine); returns a ``FrontierBatch``
 
-        The mask is a structural ``GraphMatrix``, applied right before the
-        store (paper §V); ``desc.replace=False`` merges the masked-out
-        entries from ``out``. ``with_transpose`` decides whether a boolean
-        result stores its transpose. Dense, ``FrontierBatch`` and
-        ``BitMatrix`` operands come with later slices.
+        ``semiring`` defaults to arithmetic for a dense operand and to
+        boolean otherwise. Masks are structural and applied right before
+        the store (paper §V): a ``GraphMatrix`` for SpGEMM, a
+        ``FrontierBatch`` for frontiers, a dense (or ``BitVector``) mask
+        for dense outputs, where a vector masks whole rows.
+        ``desc.replace=False`` merges the masked-out entries from ``out``;
+        ``with_transpose`` decides whether a boolean SpGEMM result stores
+        its transpose. ``BitMatrix`` operands come with the GNN slice.
         """
         desc = descriptor_mod.merge_sugar(desc, mask, complement, row_chunk)
         if desc.transpose_a:
@@ -348,38 +365,54 @@ class GraphMatrix:
         if kind == "bitvec":
             raise TypeError("mxm right-hand side is a BitVector; use mxv "
                             "for packed vector operands")
-        if kind != "graph":
+        if kind == "bitmat":
             raise NotImplementedError(
-                "mxm over a dense, FrontierBatch or BitMatrix operand is not "
-                "ported yet (ROADMAP Queue 1 items 6-7); the port has the "
-                "GraphMatrix rows")
-        semiring = semiring if semiring is not None else BOOLEAN
+                "mxm over a BitMatrix operand (the BitGNN rows) is not "
+                "ported yet (ROADMAP Queue 1 item 7)")
+        semiring = semiring if semiring is not None else (
+            ARITHMETIC if kind == "dense" else BOOLEAN)
         dispatch.check_semiring("mxm", kind, semiring)
         out_kind = dispatch.out_kind_for(semiring, kind)
-        if self.n_cols != other.n_rows:
-            raise ValueError(f"inner-dim mismatch: {self.n_cols} vs "
-                             f"{other.n_rows}")
-        if self.backend != "csr" and self.tile_dim != other.tile_dim:
-            raise ValueError(f"tile_dim mismatch: {self.tile_dim} vs "
-                             f"{other.tile_dim}")
-        call = OpCall(semiring=semiring,
-                      mask=self._norm_graph_mask(desc.mask, out_kind, other),
+        if kind == "graph":
+            if self.n_cols != other.n_rows:
+                raise ValueError(f"inner-dim mismatch: {self.n_cols} vs "
+                                 f"{other.n_rows}")
+            if self.backend != "csr" and self.tile_dim != other.tile_dim:
+                raise ValueError(f"tile_dim mismatch: {self.tile_dim} vs "
+                                 f"{other.tile_dim}")
+        elif kind == "frontier":
+            check_operand(other, self.tile_dim, self.n_cols, "B")
+        elif other.dim() != 2 or other.shape[0] != self.n_cols:
+            raise ValueError(f"dense operand shape {tuple(other.shape)} is "
+                             f"not [{self.n_cols}, d]")
+        norm_mask = (self._norm_graph_mask(desc.mask, out_kind, other)
+                     if kind == "graph" else
+                     self._norm_mask(desc.mask, kind, out_kind))
+        if kind == "dense" and norm_mask is not None and norm_mask.dim() == 1:
+            norm_mask = norm_mask[:, None]      # a vector mask masks rows
+        call = OpCall(semiring=semiring, mask=norm_mask,
                       complement=desc.complement, row_chunk=desc.row_chunk)
         op = self._direction_op("mxm", desc, kind, "frontier", out_kind,
                                 call.mask is not None)
         impl = dispatch.resolve(op, kind, out_kind, self.backend,
                                 self._bucketed(desc.row_chunk),
                                 call.mask is not None)
-        y = impl(self, other, call)
-        if out_kind == "bin":
-            return self._to_graph(y, desc, out, with_transpose)
-        if desc.replace or desc.mask is None:
-            return y
-        if out is None:
-            raise ValueError("desc.replace=False needs the previous output "
-                             "(out=) to merge masked-out entries from")
-        dm = csr_mod.to_dense(desc.mask.csr) > 0
-        return torch.where(~dm if desc.complement else dm, y, out)
+        y = impl(self, other.words if kind == "frontier" else other, call)
+        if kind == "graph":
+            if out_kind == "bin":
+                return self._to_graph(y, desc, out, with_transpose)
+            if desc.replace or desc.mask is None:
+                return y
+            if out is None:
+                raise ValueError("desc.replace=False needs the previous "
+                                 "output (out=) to merge masked-out entries "
+                                 "from")
+            dm = csr_mod.to_dense(desc.mask.csr) > 0
+            return torch.where(~dm if desc.complement else dm, y, out)
+        if kind == "frontier":
+            y = FrontierBatch.from_words(y, self.n_rows, other.n_sources,
+                                         self.tile_dim)
+        return self._merge_unreplaced(y, desc, out, out_kind, call)
 
     def tri_count(self, row_chunk: Optional[int] = None) -> torch.Tensor:
         """Σ (L·Lᵀ ⊙ L), L the strict lower triangle: the triangle count of
@@ -418,15 +451,18 @@ class GraphMatrix:
                 f"out={out_kind} masked={masked}")
         return base + "_pull"
 
-    def _norm_mask(self, mask, out_kind: str):
+    def _norm_mask(self, mask, rhs_kind: str, out_kind: str):
         """Validate the descriptor mask and strip it to the row's raw form:
-        packed words for packed outputs; a dense mask for dense outputs (a
-        ``BitVector`` is unpacked to bool)."""
+        packed words for packed outputs (a ``BitVector`` over a packed
+        vector, a ``FrontierBatch`` over frontiers); a dense mask for
+        dense outputs (a ``BitVector`` is unpacked to bool)."""
         if mask is None:
             return None
         if out_kind == "bin":
-            if not isinstance(mask, BitVector):
+            if rhs_kind == "bitvec" and not isinstance(mask, BitVector):
                 raise TypeError("packed mxv takes a BitVector mask")
+            if rhs_kind == "frontier" and not isinstance(mask, FrontierBatch):
+                raise TypeError("frontier mxm takes a FrontierBatch mask")
             check_operand(mask, self.tile_dim, self.n_rows, "mask")
             return mask.words
         if isinstance(mask, BitVector):
@@ -485,9 +521,72 @@ class GraphMatrix:
         keep = (call.mask == 0) if desc.complement else (call.mask != 0)
         return torch.where(keep, y, out)
 
+    # -- batched query entry points (the multi-source engine) ---------------
+    def msbfs(self, sources: Sequence[int], max_iters: Optional[int] = None,
+              direction=None):
+        """Multi-source BFS: per-source hop levels ``int32[n, S]``; column
+        ``s`` equals ``algorithms.bfs(g, sources[s]).levels``."""
+        from repro_torch.engine import queries
+        return queries.msbfs(self, sources, max_iters=max_iters,
+                             direction=direction)
+
+    def ppr(self, seeds: Sequence[int], alpha: float = 0.85,
+            max_iters: int = 10, eps: float = 1e-9):
+        """Batched personalized PageRank: per-seed ranks ``f32[n, S]``."""
+        from repro_torch.engine import queries
+        return queries.batched_ppr(self, seeds, alpha=alpha,
+                                   max_iters=max_iters, eps=eps)
+
+    # -- storage -------------------------------------------------------------
     def degrees(self) -> torch.Tensor:
         """Out-degree vector from the CSR twin (row_ptr diff); memoized."""
         if self.degrees_cache is None:
             ptr = self.csr.row_ptr
             self.degrees_cache = (ptr[1:] - ptr[:-1]).to(torch.float32)
         return self.degrees_cache
+
+    def fingerprint(self) -> str:
+        """Content hash of the graph structure (a plan-cache key field).
+
+        Position-weighted int64 checksums of the B2SR arrays, reduced on
+        their device and hashed with the shape header on the host (one
+        sync); memoized per instance, and kept across backend and bucket
+        toggles, which are key fields of their own. Equal structure gives
+        equal fingerprints within the port; it is not the reference's
+        hash (that one reads the ELL view back to the host).
+        """
+        if self.fingerprint_cache is None:
+            m = self.b2sr
+            sums = torch.cat([_checksums(a) for a in
+                              (m.tile_row_ptr, m.tile_col_idx, m.bit_tiles)])
+            h = hashlib.blake2b(digest_size=16)
+            h.update(f"{self.n_rows}:{self.n_cols}:{self.nnz}:"
+                     f"{self.tile_dim}:{m.n_tiles}".encode())
+            h.update(repr(sums.tolist()).encode())
+            self.fingerprint_cache = h.hexdigest()
+        return self.fingerprint_cache
+
+
+#: elements per chunk of :func:`_checksums` (bounds its int64 temporaries)
+_CHECKSUM_CHUNK = 1 << 26
+
+
+def _checksums(a: torch.Tensor) -> torch.Tensor:
+    """Two sums Σ_i u_i · w_i mod 2**64 over the unsigned 32-bit values u
+    of ``a`` (flattened), with odd position weights w_i < 2**31 mixed from
+    i by two salts: an int64 ``[2]`` on ``a``'s device. Integer sums wrap
+    the same way in any order, so the value does not depend on the
+    device."""
+    flat = a.reshape(-1)
+    total = torch.zeros(2, dtype=torch.int64, device=a.device)
+    salts = torch.tensor([0x632BE5AB, 0x2545F491], dtype=torch.int64,
+                         device=a.device)
+    for s in range(0, flat.shape[0], _CHECKSUM_CHUNK):
+        u = flat[s:s + _CHECKSUM_CHUNK].to(torch.int64) & 0xFFFFFFFF
+        i = torch.arange(s, s + u.shape[0], dtype=torch.int64,
+                         device=a.device)
+        mix = i * 0x9E3779B1 ^ (i >> 15)
+        for j in range(2):
+            w = ((mix + salts[j]) & 0x7FFFFFFF) | 1
+            total[j] += (u * w).sum()
+    return total

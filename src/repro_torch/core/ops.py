@@ -7,14 +7,19 @@ Table III mxm rows over graph operands:
   bmv_bin_bin_full    A:1-bit, x:1-bit, y:counts  (neighbour counts)
   bmv_bin_full_full   A:1-bit, x:full,  y:full    (any semiring: SSSP, CC,
                                                    PageRank)
+  spmm_b2sr           A:1-bit, X:full,  Y:full    (dense SpMM: batched PPR)
+  spmm_bin_bin_bin    A:1-bit, F:1-bit, Y:1-bit   (S packed frontiers:
+                                                   the multi-source engine)
   mxm_bin_bin_bin     A:1-bit, B:1-bit, C:1-bit   (boolean SpGEMM, k-hop)
   mxm_bin_bin_full    A:1-bit, B:1-bit, C:counts  (common neighbours)
   bmm_bin_bin_sum_masked   Σ mask ⊙ (A·B)         (triangle counting)
 
 The mxm schemes build what the reference's do: ELL walks into a dense
 packed grid ``[R, C, t]`` or a dense ``[n_rows, n_cols]`` count matrix
-(``n_rows * n_cols`` bytes and more), so they run at small sizes only;
-the ``b2sr_cuda`` kernels and the ``csr`` rows keep products sparse.
+(``n_rows * n_cols`` bytes and more), and the SpMM schemes
+``[R, t, t, W]`` and ``[R, t, t]`` intermediates per ELL slot, so they
+run at small sizes only; the ``b2sr_cuda`` kernels and the ``csr`` rows
+keep products sparse.
 Sums are int64 here, where the reference's are float32 or int32.
 
 Each scheme's per-slab math lives in a ``_*_block`` helper taking raw
@@ -32,7 +37,7 @@ import torch
 from repro_torch.core.b2sr import (B2SRBucketedEll, B2SREll,
                                    bit_transpose_words, ceil_div,
                                    ell_to_packed_grid, or_reduce_words,
-                                   packed_grid_to_b2sr)
+                                   packed_grid_to_b2sr, unpack_tiles)
 from repro_torch.core.dispatch import apply_output_mask, register
 from repro_torch.core.semiring import ARITHMETIC, BOOLEAN, Semiring
 from repro_torch.core.words import WORD, pack_bits, popcount, unpack_bits
@@ -253,6 +258,152 @@ def bmv_bin_full_full_masked(ell: B2SREll, x: torch.Tensor,
 def vxm(ell_t: B2SREll, x: torch.Tensor, **kw) -> torch.Tensor:
     """vᵀ·A == Aᵀ·v: callers pass the transposed B2SR's ELL view."""
     return bmv_bin_full_full(ell_t, x, **kw)
+
+
+# ---------------------------------------------------------------------------
+# SpMM: B2SR × dense matrix (the batched PPR product)
+# ---------------------------------------------------------------------------
+
+def _dense_tiles(x: torch.Tensor, n_cols: int, t: int) -> torch.Tensor:
+    """Dense ``[n_cols, d]`` -> zero-padded column tiles ``[n_tc, t, d]``."""
+    n_tc = ceil_div(n_cols, t)
+    x_pad = torch.nn.functional.pad(x, (0, 0, 0, n_tc * t - x.shape[0]))
+    return x_pad.view(n_tc, t, x.shape[1])
+
+
+def _spmm_block(col_idx: torch.Tensor, tiles: torch.Tensor, x3: torch.Tensor,
+                t: int, out_dtype) -> torch.Tensor:
+    """SpMM on one ELL slab: accumulated feature tiles ``[R, t, d]``.
+
+    Walks the K axis in order, as the reference's scan does: each step a
+    batched ``t x t`` 0/1 tile times the gathered ``t x d`` panel.
+    """
+    n_tc = x3.shape[0]
+    acc = torch.zeros((col_idx.shape[0], t, x3.shape[2]), dtype=out_dtype,
+                      device=x3.device)
+    for k in range(col_idx.shape[1]):
+        cols = col_idx[:, k]
+        bits = unpack_tiles(tiles[:, k], t, x3.dtype)          # [R, t, t]
+        xk = x3[cols.clamp(0, n_tc - 1).long()]                # [R, t, d]
+        xk = torch.where((cols >= 0)[:, None, None], xk, 0)
+        acc = acc + torch.bmm(bits, xk).to(out_dtype)
+    return acc
+
+
+def spmm_b2sr(ell: B2SREll, x: torch.Tensor, out_dtype=None,
+              row_chunk: Optional[int] = None) -> torch.Tensor:
+    """Y = A @ X with binary A and dense X ``[n_cols, d]``: ``[n_rows, d]``.
+
+    The Table II bin·full→full scheme widened to a dense right-hand
+    matrix; the sum runs in ``x``'s dtype unless ``out_dtype`` says.
+    """
+    t = ell.tile_dim
+    out_dtype = out_dtype or x.dtype
+    x3 = _dense_tiles(x, ell.n_cols, t)
+    out = _mapped_over_rows(
+        lambda c, tl: _spmm_block(c, tl, x3, t, out_dtype),
+        (ell.tile_col_idx, ell.bit_tiles), ell.n_tile_rows, row_chunk)
+    return out.reshape(-1, x.shape[1])[: ell.n_rows]
+
+
+def spmm_b2sr_bucketed(b: B2SRBucketedEll, x: torch.Tensor,
+                       out_dtype=None) -> torch.Tensor:
+    """Bucketed SpMM: empty tile-rows keep the zero rows."""
+    t = b.tile_dim
+    out_dtype = out_dtype or x.dtype
+    x3 = _dense_tiles(x, b.n_cols, t)
+    out = torch.zeros((b.n_tile_rows, t, x.shape[1]), dtype=out_dtype,
+                      device=x.device)
+    for col, tiles, rows in zip(b.col_idx, b.bit_tiles, b.rows):
+        out[rows.long()] = _spmm_block(col, tiles, x3, t, out_dtype)
+    return out.reshape(-1, x.shape[1])[: b.n_rows]
+
+
+# ---------------------------------------------------------------------------
+# SpMM over packed frontier matrices: bin·bin→bin with a wide right side
+# ---------------------------------------------------------------------------
+
+def _spmm_bbb_block(col_idx: torch.Tensor, tiles: torch.Tensor,
+                    f3: torch.Tensor, t: int) -> torch.Tensor:
+    """bin·bin→bin on one ELL slab against a packed frontier matrix.
+
+    ``f3`` is ``int32[n_tile_cols, t, W]``; output word ``[i, r, w] =
+    OR_c (A_tile[r, c] ? f3[col, c, w] : 0)``: the AND/shift word scheme
+    with a packed right side, so A's tiles are read once for all S
+    sources. Returns ``int32[R, t, W]``.
+    """
+    n_tc = f3.shape[0]
+    acc = torch.zeros((col_idx.shape[0], t, f3.shape[2]), dtype=WORD,
+                      device=f3.device)
+    for k in range(col_idx.shape[1]):
+        cols = col_idx[:, k]                                   # [R]
+        a_bits = unpack_bits(tiles[:, k], t)                   # [R, t(r), t(c)]
+        fk = f3[cols.clamp(0, n_tc - 1).long()]                # [R, t(c), W]
+        fk = torch.where((cols >= 0)[:, None, None], fk, 0)
+        contrib = torch.where(a_bits[..., None], fk[:, None], 0)  # [R,t,t,W]
+        acc = acc | or_reduce_words(contrib, (2,))
+    return acc
+
+
+def spmm_bin_bin_bin(ell: B2SREll, f_packed: torch.Tensor,
+                     row_chunk: Optional[int] = None) -> torch.Tensor:
+    """Multi-frontier boolean traversal: ``[n_tile_cols, t, W]`` packed
+    frontiers in, ``[n_tile_rows, t, W]`` out. Column ``s`` equals
+    ``bmv_bin_bin_bin`` on frontier ``s`` bit for bit."""
+    return _mapped_over_rows(
+        lambda c, tl: _spmm_bbb_block(c, tl, f_packed, ell.tile_dim),
+        (ell.tile_col_idx, ell.bit_tiles), ell.n_tile_rows, row_chunk)
+
+
+def apply_frontier_mask(y: torch.Tensor, mask_packed: torch.Tensor,
+                        complement: bool) -> torch.Tensor:
+    """AND a packed per-source visited mask into a frontier matrix (§V);
+    shared by every multi-frontier path."""
+    return y & (~mask_packed if complement else mask_packed)
+
+
+def spmm_bin_bin_bin_masked(ell: B2SREll, f_packed: torch.Tensor,
+                            mask_packed: torch.Tensor, complement: bool = True,
+                            row_chunk: Optional[int] = None) -> torch.Tensor:
+    """Masked multi-frontier traversal: the msBFS step. ``mask_packed`` has
+    the output layout; ``complement=True`` keeps the unvisited bits."""
+    return apply_frontier_mask(spmm_bin_bin_bin(ell, f_packed, row_chunk),
+                               mask_packed, complement)
+
+
+def spmm_bin_bin_bin_bucketed(b: B2SRBucketedEll,
+                              f_packed: torch.Tensor) -> torch.Tensor:
+    """Bucketed multi-frontier traversal; empty tile-rows keep zero words."""
+    out = torch.zeros((b.n_tile_rows, b.tile_dim, f_packed.shape[2]),
+                      dtype=WORD, device=f_packed.device)
+    for col, tiles, rows in zip(b.col_idx, b.bit_tiles, b.rows):
+        out[rows.long()] = _spmm_bbb_block(col, tiles, f_packed, b.tile_dim)
+    return out
+
+
+def spmm_bin_bin_bin_bucketed_masked(b: B2SRBucketedEll,
+                                     f_packed: torch.Tensor,
+                                     mask_packed: torch.Tensor,
+                                     complement: bool = True) -> torch.Tensor:
+    """Masked bucketed multi-frontier traversal (mask ANDed after the merge)."""
+    return apply_frontier_mask(spmm_bin_bin_bin_bucketed(b, f_packed),
+                               mask_packed, complement)
+
+
+def spmm_bin_bin_bin_pull(ell: B2SREll, f_packed: torch.Tensor,
+                          mask_packed: torch.Tensor, complement: bool = True,
+                          row_chunk: Optional[int] = None) -> torch.Tensor:
+    """Pull-direction multi-frontier traversal: the masked push math, as
+    for :func:`bmv_bin_bin_bin_pull` (bit-exact by construction)."""
+    return spmm_bin_bin_bin_masked(ell, f_packed, mask_packed, complement,
+                                   row_chunk)
+
+
+def spmm_bin_bin_bin_pull_bucketed(b: B2SRBucketedEll, f_packed: torch.Tensor,
+                                   mask_packed: torch.Tensor,
+                                   complement: bool = True) -> torch.Tensor:
+    return spmm_bin_bin_bin_bucketed_masked(b, f_packed, mask_packed,
+                                            complement)
 
 
 # ---------------------------------------------------------------------------
@@ -568,6 +719,66 @@ def _mxv_count_bucketed_masked(g, xw, call):
     y = bmv_bin_bin_full_bucketed(g.buckets(), xw, call.out_dtype)
     return apply_output_mask(y, call.mask, call.complement,
                              torch.zeros((), dtype=call.out_dtype))
+
+
+# -- mxm over dense and frontier operands: the widened Table II rows ---------
+
+@register("mxm", "dense", "full", "b2sr", bucketed=False, masked=False)
+def _mxm_dense(g, x, call):
+    return spmm_b2sr(g.ell, x, row_chunk=call.row_chunk)
+
+
+@register("mxm", "dense", "full", "b2sr", bucketed=False, masked=True)
+def _mxm_dense_masked(g, x, call):
+    y = spmm_b2sr(g.ell, x, row_chunk=call.row_chunk)
+    return apply_output_mask(y, call.mask, call.complement,
+                             call.semiring.identity_for(y.dtype))
+
+
+@register("mxm", "dense", "full", "b2sr", bucketed=True, masked=False)
+def _mxm_dense_bucketed(g, x, call):
+    return spmm_b2sr_bucketed(g.buckets(), x)
+
+
+@register("mxm", "dense", "full", "b2sr", bucketed=True, masked=True)
+def _mxm_dense_bucketed_masked(g, x, call):
+    y = spmm_b2sr_bucketed(g.buckets(), x)
+    return apply_output_mask(y, call.mask, call.complement,
+                             call.semiring.identity_for(y.dtype))
+
+
+@register("mxm", "frontier", "bin", "b2sr", bucketed=False, masked=False)
+def _mxm_frontier(g, fw, call):
+    return spmm_bin_bin_bin(g.ell, fw, call.row_chunk)
+
+
+@register("mxm", "frontier", "bin", "b2sr", bucketed=False, masked=True)
+def _mxm_frontier_masked(g, fw, call):
+    return spmm_bin_bin_bin_masked(g.ell, fw, call.mask, call.complement,
+                                   call.row_chunk)
+
+
+@register("mxm", "frontier", "bin", "b2sr", bucketed=True, masked=False)
+def _mxm_frontier_bucketed(g, fw, call):
+    return spmm_bin_bin_bin_bucketed(g.buckets(), fw)
+
+
+@register("mxm", "frontier", "bin", "b2sr", bucketed=True, masked=True)
+def _mxm_frontier_bucketed_masked(g, fw, call):
+    return spmm_bin_bin_bin_bucketed_masked(g.buckets(), fw, call.mask,
+                                            call.complement)
+
+
+@register("mxm_pull", "frontier", "bin", "b2sr", bucketed=False, masked=True)
+def _mxm_pull(g, fw, call):
+    return spmm_bin_bin_bin_pull(g.ell, fw, call.mask, call.complement,
+                                 call.row_chunk)
+
+
+@register("mxm_pull", "frontier", "bin", "b2sr", bucketed=True, masked=True)
+def _mxm_pull_bucketed(g, fw, call):
+    return spmm_bin_bin_bin_pull_bucketed(g.buckets(), fw, call.mask,
+                                          call.complement)
 
 
 # -- mxm over graph operands: Table III ---------------------------------------

@@ -1,0 +1,483 @@
+// B2SR SpMM kernels for Hopper (sm_90a): the multi-frontier traversal of
+// the multi-source engine and the dense SpMM of batched PageRank.
+//
+// Replace the TPU kernels in src/repro/kernels/spmm/spmm.py:
+//   spmm_bbb    <- spmm_bbb_pallas  (Y = A OR.AND F, F packed frontiers)
+//   spmm_dense  <- spmm_pallas      (Y = A . X, X a dense float32 matrix)
+//
+// Both walk the B2SR CSR-over-tiles arrays directly: tile_col_idx int32[nT]
+// and bit_tiles uint32[nT, t], t in {4, 8, 16, 32}. The TPU kernels needed
+// an ELL slab per static shape (one launch per bucket) and a sequential
+// grid over the K blocks of a row; here the wrapper cuts every tile-row
+// into work items, runs of at most a fixed number of its tiles, and a
+// warp takes one item. A hub tile-row (40,500 tiles and 552,282 set bits
+// in tile-row 0 of R-MAT scale 21) is then spread over many warps
+// instead of setting a floor under every launch, as one warp per
+// tile-row does in bmv_bff.
+//
+// --- spmm_bbb: out[i, r, w] = OR_{tiles k of row i, bits c of A(k)[r]}
+//     F[col(k), c, w], then AND mask (or ~mask) ------------------------------
+//
+// F, mask and out are uint32 [tiles, t, W]: word w packs sources
+// 32w .. 32w+31 of a node. A first launch folds F into one word per tile
+// column (bit c set iff node c of the column is in any frontier), so a
+// tile whose columns hold no frontier bit costs its column index and
+// nothing more, as push BFS skips a zero frontier word.
+//
+// Layout: a warp per item and per chunk of up to 32 source words. The
+// warp first gathers which bit-rows of its tile-row have an allowed bit
+// (the mask's words, complemented or not) and drops the item when none
+// has: late in a BFS most of the visited mask is full. Lanes then stride
+// over the item's tiles; a lane loads its tile's t words (16-byte vector
+// loads), keeps for each allowed bit-row r the bits c whose column holds
+// a frontier bit, and ORs F[col, c, w] into the warp's accumulator
+// acc[r][w] in shared memory. At the end the warp ANDs acc with the
+// allowed bits and merges the non-zero words into out (zeroed by the
+// wrapper) with atomicOr. This is bit-exact whatever the order: OR is
+// order-free and the mask distributes over it, so each item may mask its
+// own partial.
+//
+// Bound: device-memory bytes. Counted once: the column indices, the tiles
+// whose column holds a frontier bit and whose row an allowed bit, F, the
+// mask and out; at R-MAT scale 21 with every tile read (t = 32, W = 2)
+// that is about 4.4 GB, 1.3 ms at 3.35 TB/s, against one OR per (set bit,
+// source word): about 1.3e8, far below the operation line.
+//
+// --- spmm_dense: Y[i*t + r, d] = sum_{tiles k of row i, bits c of A(k)[r]}
+//     X[col(k)*t + c, d] ---------------------------------------------------
+//
+// X float32 [n_cols, D] and Y float32 [n_rows, D], any D >= 1, unpadded.
+// Layout: a warp per item and per chunk of 32 columns d, lane l owning
+// column d0 + l. For each set bit (r, c) of the item's tiles every lane
+// adds X[col*t + c, d] to its accumulator r, so one set bit costs one
+// coalesced read of a row of X; the lanes load 32 tiles at once and stage
+// their set bits in shared memory, so the warp then issues 16 reads of X
+// before it waits (see the kernel). Items are cut by work (set bits), so
+// that the hub tile-row's 552,282 set bits spread over ~270 warps. The TPU kernel contracted unpacked
+// 0/1 tiles with X panels on the MXU; at about 2 set bits per 1,024-bit
+// tile the tensor cores would multiply zeros.
+//
+// Float sums must not depend on the order warps finish, so a tile-row
+// cut into several items is not merged with atomics: each of its items
+// writes its partial sums to a scratch slot, and a second launch adds a
+// row's slots in item order. An item of a row that is not cut writes Y
+// itself. The sum order is then fixed by the data alone (tiles in stored
+// order, bits by row then column, items in order), and the result is the
+// same from run to run. Cutting also shortens the chains of float adds
+// (a hub bit-row's ~17,000 terms become ~300 partials), which keeps the
+// rounding error well inside 1e-5 of the sum of |terms|.
+//
+// Bound: device-memory bytes. Counted once: column indices, every tile
+// (X is dense, no tile can be skipped), X and Y; at R-MAT scale 21 with
+// D = 32 that is about 4.6 GB, 1.4 ms at 3.35 TB/s, against one add per
+// (set bit, column): 2e9 at D = 32, 0.03 ms at 67 TFLOP/s. The kernel
+// reads a row of X per set bit, which L2 serves only in part (X is 268 MB
+// at D = 32), so it is bound by the latency of those gathers rather than
+// by the bytes above: a first version, which walked a warp's tiles one by
+// one with the accumulators in registers (126 of them at t = 32), had
+// about one read in flight per warp and took 61 ms per launch at R-MAT
+// scale 21, D = 32, where cuSPARSE's SpMM takes 4.2 ms.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFull = 0xffffffffu;
+// Source words a warp accumulates in one pass over its item's tiles.
+constexpr int kWordChunk = 32;
+// Set bits a spmm_dense warp stages in shared memory per round, and the
+// reads of X it issues before it adds them up.
+constexpr int kEntries = 256;
+constexpr int kGathers = 16;
+// Blocks of spmm_dense resident per SM that it asks the compiler for: a
+// cap of 64 registers a thread. Unbounded, it took 128 at t = 32 and held
+// 16 warps per SM; at 4 blocks it takes 56 and ran 1.46 times faster, at
+// 5 (48 registers, a small spill) no faster (R-MAT scale 21, D = 32).
+constexpr int kDenseBlocksPerSM = 4;
+
+template <int T>
+__device__ __forceinline__ constexpr uint32_t lane_mask() {
+  return T == 32 ? 0xffffffffu : ((1u << T) - 1u);
+}
+
+// The t words of tile k (16-byte vector loads; bit_tiles is 16-byte
+// aligned and t is a multiple of 4).
+template <int T>
+__device__ __forceinline__ void load_tile(const uint32_t* __restrict__ tiles,
+                                          int64_t k, uint32_t (&w)[T]) {
+  const uint4* v = reinterpret_cast<const uint4*>(tiles + k * T);
+#pragma unroll
+  for (int q = 0; q < T / 4; ++q) {
+    const uint4 x = __ldg(v + q);
+    w[4 * q] = x.x;
+    w[4 * q + 1] = x.y;
+    w[4 * q + 2] = x.z;
+    w[4 * q + 3] = x.w;
+  }
+}
+
+// fnz[col] bit c = some word of F[col, c, :] is non-zero. One thread per
+// (col, c) pair; a warp's 32 pairs cover whole columns (32 % T == 0).
+template <int T>
+__global__ void __launch_bounds__(kThreads)
+frontier_columns_kernel(const uint32_t* __restrict__ f,
+                        uint32_t* __restrict__ fnz, int64_t n_pairs, int W) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+  uint32_t any = 0;
+  if (i < n_pairs) {
+    const uint32_t* p = f + i * W;
+    for (int w = 0; w < W; ++w) any |= __ldg(p + w);
+  }
+  const uint32_t bits = __ballot_sync(kFull, any != 0);
+  const int lane = threadIdx.x & 31;
+  if (i < n_pairs && lane % T == 0) fnz[i / T] = (bits >> lane) & lane_mask<T>();
+}
+
+template <int T>
+__global__ void __launch_bounds__(kThreads)
+spmm_bbb_kernel(const int32_t* __restrict__ col_idx,
+                const uint32_t* __restrict__ tiles,
+                const int32_t* __restrict__ item_row,
+                const int32_t* __restrict__ item_begin,
+                const uint32_t* __restrict__ f,
+                const uint32_t* __restrict__ fnz,
+                const uint32_t* __restrict__ mask,
+                uint32_t* __restrict__ out, int n_items, int W,
+                int complement) {
+  __shared__ uint32_t acc_all[kWarps][T * kWordChunk];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int item = blockIdx.x * kWarps + warp;
+  if (item >= n_items) return;  // uniform across the warp
+  uint32_t* acc = acc_all[warp];
+  const int row = item_row[item];
+  const int k0 = item_begin[item];
+  const int k1 = item_begin[item + 1];
+  const int64_t base = static_cast<int64_t>(row) * T * W;  // (row, 0, 0)
+
+  for (int w0 = 0; w0 < W; w0 += kWordChunk) {
+    const int nw = min(kWordChunk, W - w0);
+    // bit-rows with an allowed source in this chunk
+    uint32_t arow = lane_mask<T>();
+    if (mask != nullptr) {
+      uint32_t part = 0;
+      for (int e = lane; e < T * nw; e += 32) {
+        const int r = e / nw;
+        const uint32_t m = mask[base + static_cast<int64_t>(r) * W + w0 +
+                                (e - r * nw)];
+        if (complement ? ~m : m) part |= 1u << r;
+      }
+      arow = __reduce_or_sync(kFull, part);
+      if (arow == 0) continue;  // uniform: nothing of this chunk can land
+    }
+    for (int e = lane; e < T * nw; e += 32) {
+      const int r = e / nw;
+      acc[r * kWordChunk + (e - r * nw)] = 0;
+    }
+    __syncwarp();
+    for (int k = k0 + lane; k < k1; k += 32) {
+      const int col = col_idx[k];
+      const uint32_t fz = __ldg(fnz + col);
+      if (fz == 0) continue;  // no frontier bit in this tile's columns
+      uint32_t w[T];
+      load_tile<T>(tiles, k, w);
+      const uint32_t* fcol = f + static_cast<int64_t>(col) * T * W + w0;
+#pragma unroll
+      for (int r = 0; r < T; ++r) {
+        uint32_t bits = ((arow >> r) & 1u) ? (w[r] & fz) : 0u;
+        while (bits) {
+          const int c = __ffs(bits) - 1;
+          bits &= bits - 1;
+          const uint32_t* fp = fcol + static_cast<int64_t>(c) * W;
+          for (int j = 0; j < nw; ++j) {
+            const uint32_t v = __ldg(fp + j);
+            if (v) atomicOr(acc + r * kWordChunk + j, v);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    for (int e = lane; e < T * nw; e += 32) {
+      const int r = e / nw;
+      const int j = e - r * nw;
+      uint32_t v = acc[r * kWordChunk + j];
+      if (v == 0) continue;
+      const int64_t o = base + static_cast<int64_t>(r) * W + w0 + j;
+      if (mask != nullptr) {
+        const uint32_t m = mask[o];
+        v &= complement ? ~m : m;
+      }
+      if (v) atomicOr(out + o, v);
+    }
+    __syncwarp();  // acc is read before the next chunk clears it
+  }
+}
+
+// One warp per item, lane l owning column d0 + l of the chunk. The warp
+// takes its item's tiles 32 at a time, lane j loading tile j's column
+// index and words (to count their set bits), so 32 tiles' loads are in
+// flight together. The lanes
+// then stage the set bits of those tiles, in (tile, r, c) order, as
+// entries (row of X, r) in shared memory (a warp prefix sum places each
+// lane's entries; more than kEntries take several rounds). Last, all
+// lanes walk the entries in order, kGathers reads of rows of X issued
+// before their adds into acc[r][lane] in shared memory, which only
+// lane l touches at column l. The order of the adds is the entry order,
+// whatever the staging, so the sum is the same from run to run.
+template <int T>
+__global__ void __launch_bounds__(kThreads, kDenseBlocksPerSM)
+spmm_dense_kernel(const int32_t* __restrict__ col_idx,
+                  const uint32_t* __restrict__ tiles,
+                  const int32_t* __restrict__ item_row,
+                  const int32_t* __restrict__ item_begin,
+                  const int32_t* __restrict__ item_slot,
+                  const float* __restrict__ x, float* __restrict__ scratch,
+                  float* __restrict__ y, int n_items, int n_rows, int D) {
+  __shared__ float acc_all[kWarps][T * 32];
+  __shared__ int32_t xrow_all[kWarps][kEntries];
+  __shared__ uint8_t r_all[kWarps][kEntries];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int item = blockIdx.x * kWarps + warp;
+  if (item >= n_items) return;  // uniform across the warp
+  float* acc = acc_all[warp];
+  int32_t* s_x = xrow_all[warp];
+  uint8_t* s_r = r_all[warp];
+  const int row = item_row[item];
+  const int k0 = item_begin[item];
+  const int k1 = item_begin[item + 1];
+  const int slot = item_slot[item];
+  for (int d0 = 0; d0 < D; d0 += 32) {
+    const int d = d0 + lane;
+    const bool live = d < D;
+#pragma unroll
+    for (int r = 0; r < T; ++r) acc[r * 32 + lane] = 0.0f;
+    for (int kb = k0; kb < k1; kb += 32) {
+      const int k = kb + lane;
+      // the tile is read again (from L1) while staging, rather than held
+      // in t registers, which at t = 32 cost occupancy and spills
+      const uint4* tile4 = reinterpret_cast<const uint4*>(
+          tiles + static_cast<int64_t>(k < k1 ? k : k0) * T);
+      int xbase = 0, p = 0;
+      if (k < k1) {
+        xbase = col_idx[k] * T;
+#pragma unroll
+        for (int q = 0; q < T / 4; ++q) {
+          const uint4 w4 = __ldg(tile4 + q);
+          p += __popc(w4.x) + __popc(w4.y) + __popc(w4.z) + __popc(w4.w);
+        }
+      }
+      int off = p;  // inclusive prefix sum of the entry counts
+#pragma unroll
+      for (int s = 1; s < 32; s *= 2) {
+        const int v = __shfl_up_sync(kFull, off, s);
+        if (lane >= s) off += v;
+      }
+      const int total = __shfl_sync(kFull, off, 31);
+      off -= p;
+      for (int base = 0; base < total; base += kEntries) {
+        if (p && off < base + kEntries && off + p > base) {
+          int e = off - base;
+          for (int q = 0; q < T / 4; ++q) {
+            const uint4 w4 = __ldg(tile4 + q);
+            const uint32_t w[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              uint32_t bits = w[i];
+              while (bits) {
+                const int c = __ffs(bits) - 1;
+                bits &= bits - 1;
+                if (e >= 0 && e < kEntries) {
+                  s_x[e] = xbase + c;
+                  s_r[e] = static_cast<uint8_t>(4 * q + i);
+                }
+                ++e;
+              }
+            }
+          }
+        }
+        __syncwarp();
+        const int m = min(kEntries, total - base);
+        int e = 0;
+        for (; e + kGathers <= m; e += kGathers) {
+          float v[kGathers];
+#pragma unroll
+          for (int u = 0; u < kGathers; ++u)
+            v[u] = live ? __ldg(x + static_cast<int64_t>(s_x[e + u]) * D + d)
+                        : 0.0f;
+#pragma unroll
+          for (int u = 0; u < kGathers; ++u)
+            acc[s_r[e + u] * 32 + lane] += v[u];
+        }
+        for (; e < m; ++e) {
+          const float v =
+              live ? __ldg(x + static_cast<int64_t>(s_x[e]) * D + d) : 0.0f;
+          acc[s_r[e] * 32 + lane] += v;
+        }
+        __syncwarp();  // the entries are read before the next round
+      }
+    }
+    if (!live) continue;
+#pragma unroll
+    for (int r = 0; r < T; ++r) {
+      const float v = acc[r * 32 + lane];
+      if (slot < 0) {
+        const int64_t yr = static_cast<int64_t>(row) * T + r;
+        if (yr < n_rows) y[yr * D + d] = v;
+      } else {
+        scratch[(static_cast<int64_t>(slot) * T + r) * D + d] = v;
+      }
+    }
+  }
+}
+
+// Y rows of a cut tile-row: its items' partials added in item order. One
+// thread per (cut row, bit-row r, column d).
+template <int T>
+__global__ void __launch_bounds__(kThreads)
+spmm_dense_merge_kernel(const int32_t* __restrict__ cut_row,
+                        const int32_t* __restrict__ cut_first,
+                        const int32_t* __restrict__ cut_count,
+                        const float* __restrict__ scratch,
+                        float* __restrict__ y, int64_t n_cells, int n_rows,
+                        int D) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+  if (i >= n_cells) return;
+  const int d = static_cast<int>(i % D);
+  const int64_t rr = i / D;
+  const int r = static_cast<int>(rr % T);
+  const int64_t c = rr / T;
+  const int64_t yr = static_cast<int64_t>(cut_row[c]) * T + r;
+  if (yr >= n_rows) return;
+  const int64_t first = cut_first[c];
+  float s = 0.0f;
+  for (int p = 0; p < cut_count[c]; ++p)
+    s += scratch[((first + p) * T + r) * D + d];
+  y[yr * D + d] = s;
+}
+
+using BbbKernel = void (*)(const int32_t*, const uint32_t*, const int32_t*,
+                           const int32_t*, const uint32_t*, const uint32_t*,
+                           const uint32_t*, uint32_t*, int, int, int);
+using ColsKernel = void (*)(const uint32_t*, uint32_t*, int64_t, int);
+using DenseKernel = void (*)(const int32_t*, const uint32_t*, const int32_t*,
+                             const int32_t*, const int32_t*, const float*,
+                             float*, float*, int, int, int);
+using MergeKernel = void (*)(const int32_t*, const int32_t*, const int32_t*,
+                             const float*, float*, int64_t, int, int);
+
+BbbKernel bbb_for(int t) {
+  switch (t) {
+    case 4: return spmm_bbb_kernel<4>;
+    case 8: return spmm_bbb_kernel<8>;
+    case 16: return spmm_bbb_kernel<16>;
+    case 32: return spmm_bbb_kernel<32>;
+    default: return nullptr;
+  }
+}
+
+ColsKernel cols_for(int t) {
+  switch (t) {
+    case 4: return frontier_columns_kernel<4>;
+    case 8: return frontier_columns_kernel<8>;
+    case 16: return frontier_columns_kernel<16>;
+    case 32: return frontier_columns_kernel<32>;
+    default: return nullptr;
+  }
+}
+
+DenseKernel dense_for(int t) {
+  switch (t) {
+    case 4: return spmm_dense_kernel<4>;
+    case 8: return spmm_dense_kernel<8>;
+    case 16: return spmm_dense_kernel<16>;
+    case 32: return spmm_dense_kernel<32>;
+    default: return nullptr;
+  }
+}
+
+MergeKernel merge_for(int t) {
+  switch (t) {
+    case 4: return spmm_dense_merge_kernel<4>;
+    case 8: return spmm_dense_merge_kernel<8>;
+    case 16: return spmm_dense_merge_kernel<16>;
+    case 32: return spmm_dense_merge_kernel<32>;
+    default: return nullptr;
+  }
+}
+
+unsigned blocks_for(int64_t n, int per_block) {
+  return static_cast<unsigned>((n + per_block - 1) / per_block);
+}
+
+}  // namespace
+
+extern "C" {
+
+// fnz: uint32[n_tile_cols] scratch; out: uint32[R, t, W], zeroed by the
+// caller; mask may be null (keep every bit).
+int spmm_bbb(const void* col_idx, const void* tiles, const void* item_row,
+             const void* item_begin, int n_items, const void* f, void* fnz,
+             const void* mask, void* out, int n_tile_cols, int W, int t,
+             int complement, void* stream) {
+  const BbbKernel k = bbb_for(t);
+  const ColsKernel kc = cols_for(t);
+  if (k == nullptr || kc == nullptr || W <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_items <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t n_pairs = static_cast<int64_t>(n_tile_cols) * t;
+  kc<<<blocks_for(n_pairs, kThreads), kThreads, 0, s>>>(
+      static_cast<const uint32_t*>(f), static_cast<uint32_t*>(fnz), n_pairs,
+      W);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k<<<blocks_for(n_items, kWarps), kThreads, 0, s>>>(
+      static_cast<const int32_t*>(col_idx), static_cast<const uint32_t*>(tiles),
+      static_cast<const int32_t*>(item_row),
+      static_cast<const int32_t*>(item_begin), static_cast<const uint32_t*>(f),
+      static_cast<const uint32_t*>(fnz), static_cast<const uint32_t*>(mask),
+      static_cast<uint32_t*>(out), n_items, W, complement);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// y: float32[n_rows, D], zeroed by the caller (rows without tiles stay 0);
+// scratch: float32[n_slots, t, D] for the items of cut rows.
+int spmm_dense(const void* col_idx, const void* tiles, const void* item_row,
+               const void* item_begin, const void* item_slot, int n_items,
+               const void* cut_row, const void* cut_first,
+               const void* cut_count, int n_cut, const void* x, void* scratch,
+               void* y, int n_rows, int D, int t, void* stream) {
+  const DenseKernel k = dense_for(t);
+  const MergeKernel km = merge_for(t);
+  if (k == nullptr || km == nullptr || D <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_items <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  k<<<blocks_for(n_items, kWarps), kThreads, 0, s>>>(
+      static_cast<const int32_t*>(col_idx), static_cast<const uint32_t*>(tiles),
+      static_cast<const int32_t*>(item_row),
+      static_cast<const int32_t*>(item_begin),
+      static_cast<const int32_t*>(item_slot), static_cast<const float*>(x),
+      static_cast<float*>(scratch), static_cast<float*>(y), n_items, n_rows,
+      D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_cut <= 0) return static_cast<int>(err);
+  const int64_t n_cells = static_cast<int64_t>(n_cut) * t * D;
+  km<<<blocks_for(n_cells, kThreads), kThreads, 0, s>>>(
+      static_cast<const int32_t*>(cut_row),
+      static_cast<const int32_t*>(cut_first),
+      static_cast<const int32_t*>(cut_count),
+      static_cast<const float*>(scratch), static_cast<float*>(y), n_cells,
+      n_rows, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* repro_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,202 @@
+"""Launchers for the B2SR SpMM CUDA kernels in ``spmm.cu``.
+
+  spmm_bbb    replaces ``repro.kernels.spmm.spmm.spmm_bbb_pallas``
+              (multi-frontier traversal over packed frontier matrices)
+  spmm_dense  replaces ``repro.kernels.spmm.spmm.spmm_pallas``
+              (``Y = A · X`` with a dense float32 ``X``)
+
+Both take the B2SR as it is (no ELL padding, one launch per call) and
+cut each tile-row into work items (:func:`work_items`), runs of its
+tiles of bounded work that a warp takes each, so that a hub tile-row
+spreads over many warps; a caller may pass the items it keeps for the
+matrix (the ``b2sr_cuda`` rows do). Any cut gives the same result.
+
+A CUDA tensor goes to the kernel: a build or launch failure raises. A
+CPU tensor goes to the plain version in ``ref.py``. Each wrapper counts
+its launches in its ``launches`` attribute, so a run can show that it
+went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.core.b2sr import B2SR, tile_rows
+from repro_torch.core.words import WORD, popcount
+from repro_torch.kernels import common
+from repro_torch.kernels.spmm import ref
+
+SOURCE = Path(__file__).with_name("spmm.cu")
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_BBB_ARGS = [_PTR] * 4 + [_INT] + [_PTR] * 4 + [_INT] * 4 + [_PTR]
+_DENSE_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 3 + [_INT] + [_PTR] * 3 + \
+    [_INT] * 3 + [_PTR]
+#: work of a ``spmm_bbb`` item, in tiles: lanes take one tile each, so an
+#: item is 8 steps of a warp
+BBB_ITEM_WORK = 256
+#: work of a ``spmm_dense`` item, in set bits plus one per tile (the warp
+#: reads a row of X per set bit); a longer tile-row is cut, its items'
+#: partial sums added in a second launch
+DENSE_ITEM_WORK = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkItems:
+    """A B2SR's tile-rows cut into runs of consecutive tiles.
+
+    Item ``i`` holds tiles ``begin[i] .. begin[i + 1]`` of tile-row
+    ``row[i]``; rows without tiles have no item. A row cut into several
+    items gives each a scratch ``slot`` (-1 for an item that is its whole
+    row), and ``cut_row``, ``cut_first``, ``cut_count`` list the cut rows
+    with their first slot and their number of items.
+    """
+
+    row: torch.Tensor         # int32[n_items]
+    begin: torch.Tensor       # int32[n_items + 1]
+    slot: torch.Tensor        # int32[n_items]
+    cut_row: torch.Tensor     # int32[n_cut]
+    cut_first: torch.Tensor   # int32[n_cut]
+    cut_count: torch.Tensor   # int32[n_cut]
+    n_slots: int
+
+    @property
+    def n_items(self) -> int:
+        return int(self.row.shape[0])
+
+
+def work_items(m: B2SR, budget: int, by_bits: bool = False) -> WorkItems:
+    """Cut ``m``'s tile-rows into :class:`WorkItems` (on ``m``'s device):
+    runs of a row's tiles whose work adds up to at most ``budget`` (a
+    single tile may exceed it). A tile's work is 1, or with ``by_bits``
+    its set bits plus one."""
+    dev = m.device
+    rows = tile_rows(m)
+    if by_bits:
+        work = popcount(m.bit_tiles).sum(1, dtype=torch.int64) + 1
+    else:
+        work = torch.ones(m.n_tiles, dtype=torch.int64, device=dev)
+    done = torch.cumsum(work, 0) - work              # before each tile
+    part = (done - done[m.tile_row_ptr.long()[rows]]) // budget
+    first = torch.ones(m.n_tiles, dtype=torch.bool, device=dev)
+    first[1:] = (rows[1:] != rows[:-1]) | (part[1:] != part[:-1])
+    starts = torch.nonzero(first).flatten()
+    item_row = rows[starts]
+    per_row = torch.bincount(item_row, minlength=m.n_tile_rows)
+    cut = per_row[item_row] > 1
+    slot = torch.where(cut, torch.cumsum(cut.long(), 0) - 1, -1)
+    cut_rows = torch.nonzero(per_row > 1).flatten()
+    row_first = torch.cumsum(per_row, 0) - per_row   # each row's first item
+    i32 = torch.int32
+    return WorkItems(row=item_row.to(i32),
+                     begin=torch.cat([starts, starts.new_tensor(
+                         [m.n_tiles])]).to(i32),
+                     slot=slot.to(i32), cut_row=cut_rows.to(i32),
+                     cut_first=slot[row_first[cut_rows]].to(i32),
+                     cut_count=per_row[cut_rows].to(i32),
+                     n_slots=int(cut.sum()))
+
+
+def _check_words(name: str, a: torch.Tensor, shape, device) -> None:
+    if a.device != device:
+        raise ValueError(f"{name} is on {a.device}, the matrix on {device}")
+    if a.dtype != WORD:
+        raise TypeError(f"{name} must be int32 bit patterns, got {a.dtype}")
+    if tuple(a.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(a.shape)} != {tuple(shape)}")
+    if not a.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_items(items: WorkItems, m: B2SR) -> None:
+    if items.row.device != m.device or int(items.begin.shape[0]) != \
+            items.n_items + 1:
+        raise ValueError(f"work items on {items.row.device} with "
+                         f"{items.begin.shape[0]} begins for "
+                         f"{items.n_items} items; the matrix is on "
+                         f"{m.device}")
+
+
+def _check_aligned(m: B2SR) -> None:
+    if m.bit_tiles.numel() and m.bit_tiles.data_ptr() % 16:
+        raise ValueError("bit_tiles must be 16-byte aligned (vector loads)")
+
+
+def spmm_bbb(m: B2SR, f: torch.Tensor, mask: Optional[torch.Tensor] = None,
+             *, complement: bool = True,
+             items: Optional[WorkItems] = None) -> torch.Tensor:
+    """Multi-frontier traversal ``Y = A ∨.∧ F``, then ``& ~mask`` (or
+    ``& mask``): ``int32[n_tile_rows, t, W]`` packed frontiers.
+
+    ``f`` is ``int32[n_tile_cols, t, W]`` (``pack_frontier_matrix``) and
+    ``mask``, ``None`` to keep every bit, has the output's shape.
+    """
+    t = m.tile_dim
+    common.check_b2sr("a", m, f.device, t)
+    if f.dim() != 3:
+        raise ValueError(f"f must be [n_tile_cols, t, W], got "
+                         f"{tuple(f.shape)}")
+    w = f.shape[2]
+    _check_words("f", f, (m.n_tile_cols, t, w), m.device)
+    if mask is not None:
+        _check_words("mask", mask, (m.n_tile_rows, t, w), m.device)
+    if f.device.type != "cuda":
+        return ref.spmm_bbb(m, f, mask, complement=complement)
+    _check_aligned(m)
+    if items is None:
+        items = work_items(m, BBB_ITEM_WORK)
+    _check_items(items, m)
+    out = torch.zeros((m.n_tile_rows, t, w), dtype=WORD, device=f.device)
+    if items.n_items and w:
+        fnz = torch.empty(m.n_tile_cols, dtype=WORD, device=f.device)
+        common.call(SOURCE, "spmm_bbb", _BBB_ARGS, f,
+                    m.tile_col_idx.data_ptr(), m.bit_tiles.data_ptr(),
+                    items.row.data_ptr(), items.begin.data_ptr(),
+                    items.n_items, f.data_ptr(), fnz.data_ptr(),
+                    None if mask is None else mask.data_ptr(),
+                    out.data_ptr(), m.n_tile_cols, w, t, int(complement))
+        spmm_bbb.launches += 1
+    return out
+
+
+def spmm_dense(m: B2SR, x: torch.Tensor, *,
+               items: Optional[WorkItems] = None) -> torch.Tensor:
+    """``Y = A · X`` with A's bits as 0/1: ``x`` float32 ``[n_cols, D]``
+    (any D, unpadded), ``Y`` float32 ``[n_rows, D]``."""
+    t = m.tile_dim
+    common.check_b2sr("a", m, x.device, t)
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be float32, got {x.dtype}")
+    if x.dim() != 2 or x.shape[0] != m.n_cols:
+        raise ValueError(f"x shape {tuple(x.shape)} is not [{m.n_cols}, D]")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if x.device.type != "cuda":
+        return ref.spmm_dense(m, x)
+    _check_aligned(m)
+    if items is None:
+        items = work_items(m, DENSE_ITEM_WORK, by_bits=True)
+    _check_items(items, m)
+    d = x.shape[1]
+    y = torch.zeros((m.n_rows, d), dtype=torch.float32, device=x.device)
+    if items.n_items and d:
+        scratch = torch.empty((max(items.n_slots, 1), t, d),
+                              dtype=torch.float32, device=x.device)
+        common.call(SOURCE, "spmm_dense", _DENSE_ARGS, x,
+                    m.tile_col_idx.data_ptr(), m.bit_tiles.data_ptr(),
+                    items.row.data_ptr(), items.begin.data_ptr(),
+                    items.slot.data_ptr(), items.n_items,
+                    items.cut_row.data_ptr(), items.cut_first.data_ptr(),
+                    items.cut_count.data_ptr(), items.cut_row.numel(),
+                    x.data_ptr(), scratch.data_ptr(), y.data_ptr(), m.n_rows,
+                    d, t)
+        spmm_dense.launches += 1
+    return y
+
+
+spmm_bbb.launches = 0
+spmm_dense.launches = 0

@@ -131,8 +131,10 @@ def test_from_reference_graph_sssp_matches(backend):
 
 def test_sssp_rejects_what_the_slice_does_not_run():
     g = port_graph(8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        sssp(g, [0, 1])
+    with pytest.raises(ValueError, match="row_chunk"):
+        sssp(g, [0, 1], row_chunk=2)
+    with pytest.raises(ValueError, match="out of range"):
+        sssp(g, [0, N])
     for bad in (N, -1):
         with pytest.raises(ValueError):
             sssp(g, bad)

@@ -135,10 +135,11 @@ def test_registry_covers_reference_packed_rows():
     from repro_torch.core import dispatch as p_dispatch
     backend = {"b2sr": "b2sr", "b2sr_pallas": "b2sr_cuda", "csr": "csr"}
     got = set(p_dispatch.registered_keys(load_all=True))
-    # the (op, operand) columns ported so far; the dense, frontier and
-    # bitmat mxm rows come with the engine and GNN slices
+    # the (op, operand) columns ported so far; the bitmat mxm rows come
+    # with the GNN slice
     ported = {("mxv", "dense"), ("mxv", "bitvec"), ("mxv_pull", "bitvec"),
-              ("mxm", "graph"), ("mxm_sum", "tri")}
+              ("mxm", "graph"), ("mxm_sum", "tri"), ("mxm", "dense"),
+              ("mxm", "frontier"), ("mxm_pull", "frontier")}
     assert {k[:2] for k in got} == ported
     want = {k[:3] + (backend[k[3]],) + k[4:]
             for k in r_dispatch.registered_keys(load_all=True)
@@ -272,8 +273,10 @@ def test_bfs_rejects_what_the_slice_does_not_run():
     g = port_graph(8)
     with pytest.raises(ValueError):
         bfs(g, SOURCE, max_iters=-1)
-    with pytest.raises(NotImplementedError, match="engine"):
-        bfs(g, [0, 1])
+    with pytest.raises(ValueError, match="row_chunk"):
+        bfs(g, [0, 1], row_chunk=2)
+    with pytest.raises(ValueError, match="out of range"):
+        bfs(g, [0, N])
     with pytest.raises(ValueError):
         bfs(g, N)
 

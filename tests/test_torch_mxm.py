@@ -14,6 +14,7 @@ here.
 from __future__ import annotations
 
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -263,8 +264,11 @@ def test_mxm_rejects_what_the_reference_rejects():
     g = port_graph("a", 8)
     with pytest.raises(TypeError, match="BitVector"):
         g.mxm(BitVector.pack(torch.ones(N), 8, N))
-    with pytest.raises(NotImplementedError, match="Queue 1 items 6-7"):
-        g.mxm(torch.ones(N, 3))
+    # a packed-activation operand (words + feature width), as BitMatrix
+    bitmat = types.SimpleNamespace(words=torch.zeros(6, 3, dtype=torch.int32),
+                                   d=3, n=N, tile_dim=8)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        g.mxm(bitmat)
     with pytest.raises(NotImplementedError, match="boolean"):
         g.mxm(g, SEMIRINGS["min_plus"])
     with pytest.raises(TypeError, match="structural"):
