@@ -6,12 +6,14 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py            # R-MAT scale 21, the default
     python3 chip_smoke.py --scale 16 # a quicker rehearsal
 
-It builds the port's CUDA kernels from ``src/repro_torch/kernels`` (four
+It builds the port's CUDA kernels from ``src/repro_torch/kernels`` (five
 ``.cu`` sources, one ``nvcc`` each, in parallel) and drives BFS, SSSP,
 PageRank/PPR, CC, the generic mxv rows, triangle counting, boolean
-SpGEMM, k-hop reachability and the multi-source engine (msbfs, mskhop,
-ms_sssp, batched PPR, the query batcher) through the port's entry
-points. Each phase prints one JSON line; a failed phase exits non-zero.
+SpGEMM, k-hop reachability, the multi-source engine (msbfs, mskhop,
+ms_sssp, batched PPR, the query batcher), the bit-packing entry points
+and BitGNN inference (``gnn_infer`` at gcn-cora's widths) through the
+port's entry points. Each phase prints one JSON line; a failed phase
+exits non-zero.
 
   1. kernels: each kernel against its plain PyTorch version
      (``kernels/bmv/ref.py``) on the card, at tile dims 4/8/16/32 on small
@@ -88,16 +90,41 @@ points. Each phase prints one JSON line; a failed phase exits non-zero.
      (``torch.sparse.mm`` of the float CSR by [n, 64] frontiers and by
      [n, 32] and [n, 64] float X: the yardstick, which the port never
      calls) and the bound.
- 15. timing: per kernel of phases 2-6 the median time of one launch (CUDA
+ 15. bitpack: ``kernels.bitpack.ops.bit_transpose`` of the graph's
+     tiles (equal to the tiles of the stored transpose, which is built
+     from the swapped COO) and ``pack_dense`` of a [32768, 32768] uint8
+     0/1 matrix (equal to its plain version), their launch counts, and
+     each kernel's time beside its plain version and its bound.
+ 16. gnn: BitGNN inference at gcn-cora's widths (d_in 1433, d_hidden 16,
+     7 classes, 2 layers) on the same graph, bag-of-words features and
+     random weights made on the card from the seed: ``gnn_infer`` of the
+     64 engine sources with ``binarize`` True (hidden layer: ``pack_rows``
+     and ``spmm_bbf``) and False on ``b2sr_cuda`` and ``csr``, the input
+     layer on ``spmm_dense`` at D = 1433. Each backend's logits against a
+     float64 SciPy second layer from its own first-layer activations
+     (within 1e-5 on the bit path, 1e-4 on the float path, relative to
+     |agg|·|W| + |b|), the float path's backends against each other, and
+     ``spmm_bbf``'s counts equal to ``csr``'s and the plain version's on
+     the same ``BitMatrix``; one ``QueryBatcher.flush`` of 96 queries per
+     model, every handle equal to its ``gnn_infer`` column. Prints the
+     walls, the nodes per second of the flush, the peak device memory,
+     ``spmm_dense`` at D = 1433 beside cuSPARSE with its scratch bytes,
+     and ``spmm_bbf`` and ``pack_rows`` per launch beside their plain
+     versions, the ``csr`` row and (``spmm_bbf``) cuSPARSE SpMM of the
+     unpacked 0/1 matrix.
+     In phases 15-16 the kernels' launch counts are set to 0 just before
+     the phase's ``b2sr_cuda`` runs and read just after.
+ 17. timing: per kernel of phases 2-6 the median time of one launch (CUDA
      events) on the main path's inputs (each iteration of one run),
      beside its plain version, the ``csr`` row, one cuSPARSE SpMV call
      (``torch.mv`` on the float CSR) where that computes the same
      function, and the bound (bytes over 3.35 TB/s or operations over
      67 TFLOP/s); the graph's B2SR and CSR bytes. Phases 7-8 time their
      own kernels the same way.
- 16. profile: one run per algorithm and BFS direction, triangle counting,
-     k-hop, msbfs (auto) and batched PPR under ``torch.profiler``: device
-     time by kernel and the card's idle share.
+ 18. profile: one run per algorithm and BFS direction, triangle counting,
+     k-hop, msbfs (auto), batched PPR and ``gnn_infer`` (bit and float)
+     under ``torch.profiler``: device time by kernel and the card's idle
+     share.
 
 The kernels phase also holds ``bmm_tc`` and ``spgemm_bbb`` against their
 plain versions on the small graphs at every tile dim (SpGEMM with no
@@ -107,7 +134,12 @@ the triangle counts and A² patterns of those graphs against SciPy;
 densities 0.05% and 5%, unmasked, masked and complemented, bit for bit,
 and ``spmm_dense`` at D = 1, 32, 33, 64, bit for bit with small-integer
 X and within ``|y - y_plain| <= 1e-5 * (A·|X|)`` with random X, on the
-small graphs and the full graph.
+small graphs and the full graph; ``spmm_bbf`` (work items of 256 and of
+3 tiles) and ``pack_rows`` (float32 and bool input) at D = 1, 16, 33, 130
+on the small graphs and at D = 16 on the full graph, ``pack_dense`` of
+each small graph's dense adjacency, row- and column-major (row-major also
+equal to the graph's own B2SR tiles), and ``bit_transpose`` of every
+graph's tiles, all bit for bit.
 
 Then the card's name and power limit, the kernel table as one JSON line,
 and last ``{"ok": true, "device": {...}}``. Without CUDA it exits 1
@@ -166,6 +198,14 @@ KERNELS = {
                  "src/repro_torch/kernels/spmm/spmm.cu"),
     "spmm_dense": ("src/repro/kernels/spmm/spmm.py:150",
                    "src/repro_torch/kernels/spmm/spmm.cu"),
+    "spmm_bbf": ("src/repro/kernels/spmm/spmm.py:109",
+                 "src/repro_torch/kernels/spmm/spmm.cu"),
+    "pack_rows": ("src/repro/kernels/bitpack/bitpack.py:59",
+                  "src/repro_torch/kernels/bitpack/bitpack.cu"),
+    "pack_dense": ("src/repro/kernels/bitpack/bitpack.py:32",
+                   "src/repro_torch/kernels/bitpack/bitpack.cu"),
+    "bit_transpose": ("src/repro/kernels/bitpack/bitpack.py:89",
+                      "src/repro_torch/kernels/bitpack/bitpack.cu"),
 }
 MS_SOURCES = 64                # msbfs / mskhop / ms_sssp batch
 PPR_SEEDS = 32                 # batched PPR batch
@@ -174,6 +214,13 @@ SPMM_SOURCES = (1, 33, 70)     # spmm_bbb checks: W = 1, 2, 3 source words
 SPMM_DENSITIES = (0.0005, 0.05)
 SPMM_WIDTHS = (1, 32, 33, 64)  # spmm_dense checks: D
 BATCH_QUERIES = (140, 60)      # batcher: BFS and PPR queries, duplicates in
+GNN_WIDTHS = (1, 16, 33, 130)  # spmm_bbf / pack_rows checks: D
+BOW_WORDS = 18                 # words per node of the bag-of-words features
+GNN_QUERIES = 96               # batcher: gnn_infer queries per model
+BIT_TOL = 1e-5                 # bit-path logits against float64, see phase_gnn
+FLOAT_TOL = 1e-4               # float-path logits, see phase_gnn
+PACK_SIDE = 32768              # pack_dense timing: [PACK_SIDE, PACK_SIDE]
+TRANSPOSE_CHUNK = 1 << 19      # tiles per plain bit_transpose call
 
 
 def emit(obj) -> None:
@@ -216,11 +263,12 @@ def event_ms(fn, reps: int = REPS) -> float:
 
 def wrapper(name: str):
     """The wrapper of kernel ``name`` (it carries the launch count)."""
+    from repro_torch.kernels.bitpack import bitpack
     from repro_torch.kernels.bmm import bmm
     from repro_torch.kernels.bmv import bmv
     from repro_torch.kernels.spgemm import spgemm
     from repro_torch.kernels.spmm import spmm
-    for mod in (bmv, bmm, spgemm, spmm):
+    for mod in (bmv, bmm, spgemm, spmm, bitpack):
         if hasattr(mod, name):
             return getattr(mod, name)
     raise KeyError(name)
@@ -345,6 +393,7 @@ def phase_kernels(full_g, rng):
     n_checks += check_row_products(cases[:-1], rng, max_err, bad)
     spmm_checks, dense_ratio = check_spmm(cases, max_err, bad)
     n_checks += spmm_checks
+    n_checks += check_bit_kernels(cases, max_err, bad)
     emit({"phase": "kernels", "ok": not bad, "checks": n_checks,
           "max_abs_err": max_err,
           "bff_sum_err_over_bound": worst_sum_ratio,
@@ -470,6 +519,83 @@ def check_spmm(cases, max_err, bad):
             if err or not bool((diff <= bound).all()):
                 bad.append(["spmm_dense", name, t, d, err])
     return n_checks, worst
+
+
+def plain_bit_transpose(words, t: int):
+    """The plain bit transpose, TRANSPOSE_CHUNK tiles at a time (it
+    unpacks every tile to t * t values)."""
+    import torch
+    from repro_torch.kernels.bitpack import ref
+    return torch.cat([ref.bit_transpose(words[s:s + TRANSPOSE_CHUNK], t)
+                      for s in range(0, words.shape[0], TRANSPOSE_CHUNK)])
+
+
+def uint_err(got, want) -> int:
+    from repro_torch.core.words import to_uint
+    if got.shape != want.shape:
+        return -1
+    return int((to_uint(got) - to_uint(want)).abs().max()) if got.numel() \
+        else 0
+
+
+def check_bit_kernels(cases, max_err, bad) -> int:
+    """spmm_bbf, pack_rows, pack_dense and bit_transpose against their
+    plain versions, bit for bit: spmm_bbf at D = 1, 16, 33, 130 on the
+    small graphs (with work items of 3 tiles too, so every row merges
+    several items) and at D = 16 on the full graph; pack_rows on [n, D]
+    float32 and bool inputs at the same widths; pack_dense of each small
+    graph's dense adjacency, row- and column-major, also against the
+    B2SR's own tiles; bit_transpose of every case's tiles. Returns the
+    number of checks."""
+    import torch
+    from repro_torch.core.b2sr import b2sr_to_coo, b2sr_to_packed_grid
+    from repro_torch.kernels.bitpack import bitpack, ref as bref
+    from repro_torch.kernels.spmm import ref, spmm
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    n_checks = 0
+
+    def record(kernel, err, *where):
+        nonlocal n_checks
+        max_err[kernel] = max(max_err[kernel], abs(err))
+        n_checks += 1
+        if err:
+            bad.append([kernel, *where, err])
+
+    for name, g in cases:
+        m, t, n = g.b2sr, g.tile_dim, g.n_rows
+        full = name == "rmat_full"
+        for d in ((16,) if full else GNN_WIDTHS):
+            x = torch.randn((g.n_cols, d), generator=gen, device=DEVICE)
+            x[torch.rand((g.n_cols, d), generator=gen, device=DEVICE)
+              < 0.5] = 0.0
+            for xx in (x, x != 0):
+                got = bitpack.pack_rows(xx, t)
+                record("pack_rows", uint_err(got, bref.pack_rows(xx, t)),
+                       name, t, d, str(xx.dtype))
+            xw = got
+            want = ref.spmm_bbf(m, xw, torch.int32)
+            cuts = (None,) if full else (None, spmm.work_items(m, 3))
+            for items in cuts:
+                got = spmm.spmm_bbf(m, xw, torch.int32, items=items)
+                record("spmm_bbf", int((got - want).abs().max()), name, t,
+                       d, items is None)
+        record("bit_transpose",
+               uint_err(bitpack.bit_transpose(m.bit_tiles, t),
+                        plain_bit_transpose(m.bit_tiles, t)), name, t)
+        if full:
+            continue
+        rows, cols = b2sr_to_coo(m)
+        dense = torch.zeros((n, g.n_cols), dtype=torch.bool, device=DEVICE)
+        dense[rows, cols] = True
+        grid = b2sr_to_packed_grid(m)
+        for col_major in (False, True):
+            got = bitpack.pack_dense(dense, t, col_major)
+            err = uint_err(got, bref.pack_dense(dense, t, col_major))
+            if not col_major:
+                err = err or uint_err(got, grid)
+            record("pack_dense", err, name, t, col_major)
+    return n_checks
 
 
 def one_row(m, r: int):
@@ -1471,7 +1597,307 @@ def spmm_timing(g, levels, n_iterations, seeds):
     return table
 
 
-def phase_profile(g, source, road, srcs):
+def phase_bitpack(g):
+    """The packing entry points (``kernels.bitpack.ops``) at full size:
+    ``bit_transpose`` of the graph's tiles, which must be the tiles of the
+    stored transpose (built from the swapped COO), and ``pack_dense`` of
+    a [PACK_SIDE, PACK_SIDE] uint8 0/1 matrix, against its plain version;
+    then each kernel's time beside its plain version and its bound."""
+    import torch
+    from repro_torch.core.b2sr import tile_rows
+    from repro_torch.kernels.bitpack import bitpack, ops, ref
+
+    m, mt = g.b2sr, g.transposed().b2sr
+    t = m.tile_dim
+    x = torch.randint(0, 2, (PACK_SIDE, PACK_SIDE), dtype=torch.uint8,
+                      generator=torch.Generator(device=DEVICE).manual_seed(
+                          SEED + 6), device=DEVICE)
+    names = ("pack_dense", "bit_transpose")
+    reset_launches(names)
+    (tt, packed), wall = sync_time(lambda: (ops.bit_transpose(m.bit_tiles, t),
+                                            ops.pack_dense(x, t)))
+    launches = read_launches("bitpack", names)
+    problems = []
+    # tile k of A at (r, c) is tile (c, r) of Aᵀ, its bits transposed
+    order = torch.argsort(m.tile_col_idx.long() * m.n_tile_rows
+                          + tile_rows(m))
+    if not torch.equal(tt[order], mt.bit_tiles):
+        problems.append("bit_transpose != the stored transpose's tiles")
+    del tt, order
+    if not torch.equal(packed, ref.pack_dense(x, t)):
+        problems.append("pack_dense != plain")
+    del packed
+    torch.cuda.empty_cache()
+    nbytes_t = 2 * 4 * m.bit_tiles.numel()
+    r_c = -(-PACK_SIDE // t)
+    rows = [
+        {"name": "bit_transpose",
+         "ms": event_ms(lambda: bitpack.bit_transpose(m.bit_tiles, t)),
+         "plain_ms": event_ms(lambda: plain_bit_transpose(m.bit_tiles, t),
+                              reps=1),
+         # log2(t) steps of a shuffle and about 5 word operations per word
+         **bound_row(nbytes_t, 6 * 5 * m.bit_tiles.numel()),
+         "library_ms": None, "csr_row_ms": None,
+         "inputs": f"the {m.n_tiles} tiles of the graph (n = {g.n_rows}); "
+                   f"no PyTorch call transposes bits, no csr row"},
+        {"name": "pack_dense",
+         "ms": event_ms(lambda: bitpack.pack_dense(x, t)),
+         "plain_ms": event_ms(lambda: ref.pack_dense(x, t), reps=1),
+         # a compare and an OR per entry
+         **bound_row(x.numel() + 4 * r_c * r_c * t, 2 * x.numel()),
+         "library_ms": None, "csr_row_ms": None,
+         "inputs": f"[{PACK_SIDE}, {PACK_SIDE}] uint8 0/1, row-major; no "
+                   f"PyTorch call packs bits, no csr row"},
+    ]
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    emit({"phase": "bitpack", "ok": not problems, "problems": problems,
+          "launches": launches, "wall_s": wall, "timing": rows})
+    if problems:
+        fail("bitpack", "; ".join(problems))
+    del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gcn_cora_model(n: int):
+    """gcn-cora's widths at n nodes, made on the card from SEED: bag-of-
+    words features (each of the d_in words present with probability
+    BOW_WORDS / d_in, as Cora's papers hold about 18 of 1,433 words, each
+    row then divided by its sum, Kipf and Welling's preprocessing) and
+    Glorot-scaled random weights and biases."""
+    import torch
+    from repro_torch.configs import gcn_cora
+
+    cfg = gcn_cora.CONFIG
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    x = torch.rand((n, cfg.d_in), generator=gen, device=DEVICE)
+    x.lt_(BOW_WORDS / cfg.d_in)           # 0/1 in place: one [n, d_in] copy
+    x.div_(x.sum(1, keepdim=True).clamp_min(1.0))
+    dims = ([cfg.d_in] + [cfg.d_hidden] * (cfg.n_layers - 1)
+            + [cfg.n_classes])
+    params = []
+    for a, b in zip(dims[:-1], dims[1:]):
+        w = torch.randn((a, b), generator=gen, device=DEVICE)
+        params.append((w * (2.0 / (a + b)) ** 0.5,
+                       0.1 * torch.randn(b, generator=gen, device=DEVICE)))
+    return cfg, x, params
+
+
+def layer2_float64(adj, deg, h1, params, nodes, bit: bool):
+    """The second layer's logits of ``nodes`` in float64 (SciPy) from the
+    port's own first-layer activations ``h1`` ([n, d] numpy): the bit
+    path's α·(2·A·(h1 > 0) − rowsum) + h1, or A·h1 + h1; then @ W + b.
+    Returns (logits [len(nodes), classes], the scale |agg|·|W| + |b|)."""
+    w, b = (p.double().cpu().numpy() for p in params[1])
+    sub = adj[nodes]
+    if bit:
+        alpha = np.abs(h1).mean(0)
+        agg = alpha * (2.0 * (sub @ (h1 > 0).astype(np.float64))
+                       - deg[nodes][:, None]) + h1[nodes]
+    else:
+        agg = sub @ h1 + h1[nodes]
+    return agg @ w + b, np.abs(agg) @ np.abs(w) + np.abs(b)
+
+
+def bbf_bytes_ops(m, xw):
+    """spmm_bbf reads every tile (XW is dense): pointers, column indices,
+    tiles, XW and Y once each; an AND, a popcount and an add per
+    (non-zero tile word, column)."""
+    t, d = m.tile_dim, xw.shape[1]
+    nz_words = int((m.bit_tiles != 0).sum())
+    nbytes = 4 * ((m.n_tile_rows + 1) + m.n_tiles * (1 + t) + xw.numel()
+                  + m.n_rows * d)
+    return nbytes, 3 * nz_words * d
+
+
+def phase_gnn(g, adj, deg, srcs):
+    """BitGNN inference at gcn-cora's widths on the full graph.
+
+    ``gnn_infer`` of the 64 engine sources with ``binarize`` True (the
+    hidden layer's aggregation on the bit path: ``pack_rows``,
+    ``spmm_bbf``) and False, on ``b2sr_cuda`` and ``csr``; the input
+    layer aggregates the float features with ``spmm_dense`` at D = 1433.
+    Checks (tolerances relative to |agg|·|W| + |b|, elementwise):
+      - each backend's logits against a float64 SciPy evaluation of the
+        second layer from that backend's own first-layer activations:
+        within BIT_TOL on the bit path (the counts are exact; only α,
+        the epilogue and the 16-term product round in float32) and
+        FLOAT_TOL on the float path (float32 sums over up to ~40,000
+        neighbours, in another order than float64);
+      - binarize=False logits of b2sr_cuda against csr within FLOAT_TOL
+        (the first layers round differently, so h > 0 may flip a few
+        bits between backends: the bit path is held per backend);
+      - on b2sr_cuda's activations, the ``BitMatrix`` words equal the
+        plain packing, and the counts of ``spmm_bbf``, the csr row and
+        the plain version are equal bit for bit;
+      - one ``QueryBatcher.flush`` of GNN_QUERIES queries per model (with
+        duplicates): every handle equals its ``gnn_infer`` column.
+    Returns the kernel table rows of spmm_bbf and pack_rows, the
+    b2sr_cuda launches, and the runs for the profile phase.
+    """
+    import torch
+    from repro_torch.core import csr as csr_mod
+    from repro_torch.engine import (PlanCache, QueryBatcher, gnn_infer,
+                                    register_gnn_model)
+    from repro_torch.gnn_bit import binarize
+    from repro_torch.kernels.bitpack import bitpack, ref as bref
+    from repro_torch.kernels.spmm import ref, spmm
+
+    n, t = g.n_rows, g.tile_dim
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    (cfg, x, params), make_s = sync_time(lambda: gcn_cora_model(n))
+    models = {"bit": True, "float": False}
+    for k, bz in models.items():
+        register_gnn_model(f"gcn-cora/{k}", params, x, binarize=bz,
+                           device=DEVICE)
+    register_gnn_model("gcn-cora/layer0", params[:1], x, binarize=False,
+                       device=DEVICE)
+    planner = PlanCache()
+    names = ("spmm_dense", "spmm_bbf", "pack_rows")
+    nodes = np.asarray(srcs)
+    logits, h1, wall, peak, err = {}, {}, {}, {}, {}
+    launches = None
+    problems = []
+    for be in ("b2sr_cuda", "csr"):
+        gg = g.with_backend(be)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if be == "b2sr_cuda":
+            reset_launches(names)
+        for k in models:
+            for run in ("first", "second"):
+                logits[be, k], wall[f"{be}/{k}/{run}"] = sync_time(
+                    lambda: gnn_infer(gg, nodes, f"gcn-cora/{k}",
+                                      planner=planner).logits)
+        if be == "b2sr_cuda":
+            launches = read_launches("gnn", names)
+        peak[be] = torch.cuda.max_memory_allocated()
+        layer0 = gnn_infer(gg, np.arange(n), "gcn-cora/layer0",
+                           planner=planner).logits
+        h1[be] = torch.relu(layer0.T).contiguous()
+        del layer0
+        h_np = h1[be].double().cpu().numpy()
+        for k, bz in models.items():
+            want, scale = layer2_float64(adj, deg, h_np, params, nodes, bz)
+            got = logits[be, k].T.double().cpu().numpy()
+            err[f"{be}/{k}"] = float(np.max(np.abs(got - want) / scale))
+            if err[f"{be}/{k}"] > (BIT_TOL if bz else FLOAT_TOL):
+                problems.append(f"{be}/{k} logits != float64 layer 2")
+            if not np.isfinite(got).all() or got.shape != (len(nodes),
+                                                           cfg.n_classes):
+                problems.append(f"{be}/{k} logits not finite [64, 7]")
+        del h_np
+    want, scale = layer2_float64(adj, deg, h1["b2sr_cuda"].double().cpu()
+                                 .numpy(), params, nodes, False)
+    diff = (logits["b2sr_cuda", "float"] - logits["csr", "float"]).T
+    cross = float(np.max(np.abs(diff.double().cpu().numpy()) / scale))
+    if cross > FLOAT_TOL:
+        problems.append("binarize=False: b2sr_cuda != csr")
+    flips = int(((h1["b2sr_cuda"] > 0) != (h1["csr"] > 0)).sum())
+    del h1["csr"]
+    torch.cuda.empty_cache()
+
+    # the bit layer's operands, from b2sr_cuda's activations
+    hb = h1["b2sr_cuda"] > 0
+    bm = binarize.pack_activations(h1["b2sr_cuda"], t)
+    if not torch.equal(bm.words, bref.pack_rows(hb, t)):
+        problems.append("pack_activations != plain packing")
+    counts = g.mxm(bm, out_dtype=torch.int32)
+    if not torch.equal(counts, g.with_backend("csr").mxm(
+            bm, out_dtype=torch.int32)):
+        problems.append("spmm_bbf counts != csr")
+    if not torch.equal(counts, ref.spmm_bbf(g.b2sr, bm.words, torch.int32)):
+        problems.append("spmm_bbf counts != plain")
+
+    # the batcher: two groups (one per model), duplicates in
+    rng = np.random.default_rng(SEED + 4)
+    queries = [(k, int(v)) for k in models
+               for v in rng.choice(nodes, GNN_QUERIES)]
+    b = QueryBatcher(planner=planner)
+    reset_launches(names)
+
+    def serve():
+        hs = [b.gnn_infer(g, v, f"gcn-cora/{k}") for k, v in queries]
+        b.flush()
+        return hs
+
+    handles, flush_s = sync_time(serve)
+    batch_launches = read_launches("gnn", names)
+    col = {int(v): i for i, v in enumerate(nodes)}
+    worst = 0.0
+    for (k, v), h in zip(queries, handles):
+        want_col = logits["b2sr_cuda", k][:, col[v]]
+        worst = max(worst, float((h.result() - want_col).abs().max()))
+        if not torch.allclose(h.result(), want_col, rtol=1e-6, atol=0):
+            problems.append(f"batcher {k}/{v} != gnn_infer column")
+    dedup = sum(GNN_QUERIES - len({v for kk, v in queries if kk == k})
+                for k in models)
+    if b.n_deduped != dedup:
+        problems.append(f"deduped {b.n_deduped} != {dedup}")
+
+    # kernel timing on the main path's inputs
+    m = g.b2sr
+    gc = g.with_backend("csr")
+    spm = csr_mod.to_sparse(g.csr)
+    x01 = bm.unpack(torch.float32)
+    bbf_items = spmm.work_items(m, spmm.BBF_ITEM_WORK)
+    bbf = {"name": "spmm_bbf",
+           "ms": event_ms(lambda: spmm.spmm_bbf(m, bm.words,
+                                                items=bbf_items)),
+           "plain_ms": event_ms(lambda: ref.spmm_bbf(m, bm.words), reps=1),
+           "csr_row_ms": event_ms(lambda: gc.mxm(bm), reps=3),
+           "library_ms": event_ms(lambda: torch.sparse.mm(spm, x01), reps=3),
+           **bound_row(*bbf_bytes_ops(m, bm.words)),
+           "inputs": f"the hidden layer of gnn_infer (binarize=True), "
+                     f"D = {cfg.d_hidden}; library: cuSPARSE SpMM of the "
+                     f"unpacked 0/1 [n, {cfg.d_hidden}]"}
+    pack = {"name": "pack_rows",
+            "ms": event_ms(lambda: bitpack.pack_rows(hb, t)),
+            "plain_ms": event_ms(lambda: bref.pack_rows(hb, t), reps=3),
+            # a compare and an OR per entry
+            **bound_row(hb.numel() + 4 * bm.words.numel(), 2 * hb.numel()),
+            "library_ms": None, "csr_row_ms": None,
+            "inputs": f"h > 0 of the hidden layer, bool [n, "
+                      f"{cfg.d_hidden}]; no PyTorch call packs bits, no "
+                      f"csr row"}
+    del x01, counts, hb
+    dense_items = spmm.work_items(m, spmm.DENSE_ITEM_WORK, by_bits=True)
+    torch.cuda.empty_cache()
+    dense_1433 = {
+        "ms": event_ms(lambda: spmm.spmm_dense(m, x, items=dense_items),
+                       reps=1),
+        "library_ms": event_ms(lambda: torch.sparse.mm(spm, x), reps=1),
+        "scratch_bytes": max(dense_items.n_slots, 1) * t * cfg.d_in * 4,
+        **bound_row(*dense_bytes_ops(m, cfg.d_in, g.nnz))}
+    emit({"phase": "gnn", "ok": not problems, "problems": problems[:10],
+          "config": "gcn-cora", "n": n, "d_in": cfg.d_in,
+          "d_hidden": cfg.d_hidden, "n_classes": cfg.n_classes,
+          "n_nodes_queried": len(nodes), "launches": launches,
+          "features_s": make_s, "wall_s": wall,
+          "err_over_scale": err, "float_b2sr_cuda_vs_csr": cross,
+          "bit_flips_between_backends": flips,
+          "peak_device_bytes": peak, "device_bytes_before": before,
+          "batcher": {"queries": len(queries), "groups": b.n_launches,
+                      "deduped": b.n_deduped, "launches": batch_launches,
+                      "wall_s": flush_s,
+                      "nodes_per_s": len(queries) / flush_s,
+                      "max_abs_diff": worst},
+          "spmm_dense_d1433": dense_1433,
+          "timing": [bbf, pack]})
+    if problems:
+        fail("gnn", "; ".join(problems[:5]))
+    for k in names:
+        launches[k] += batch_launches[k]
+    runs = {f"gnn_infer/{k}": (lambda k=k: gnn_infer(g, nodes,
+                                                     f"gcn-cora/{k}"))
+            for k in models}
+    return [bbf, pack], launches, runs
+
+
+def phase_profile(g, source, road, srcs, extra_runs):
     """Device busy time of one run per algorithm and BFS direction
     (torch.profiler, CUPTI): kernel time by name, and the share of the
     wall time the card idled."""
@@ -1492,6 +1918,7 @@ def phase_profile(g, source, road, srcs):
     runs["msbfs/auto"] = lambda: msbfs(g, srcs, direction="auto")
     runs["batched_ppr"] = lambda: batched_ppr(g, srcs[:PPR_SEEDS],
                                               max_iters=10, eps=0.0)
+    runs.update(extra_runs)
     out = {}
     for name, fn in runs.items():
         with profile(activities=[ProfilerActivity.CPU,
@@ -1595,13 +2022,18 @@ def main() -> int:
     del ppr_res
     spmm_rows = spmm_timing(g, ms_auto.levels, ms_auto.n_iterations,
                             srcs[:PPR_SEEDS])
+    pack_rows_ = phase_bitpack(g)
+    gnn_rows, ls, gnn_runs = phase_gnn(g, adj, deg, srcs)
+    dense_launches += ls["spmm_dense"]
     for row, n_launches in zip(spmm_rows, (bbb_launches, dense_launches)):
         row["launches"] = n_launches
+    for row in gnn_rows:
+        row["launches"] = ls[row["name"]]
 
     table, csr_ms = phase_timing(g, first, sources, launches)
     for row in table:
         row["csr_row_ms"] = csr_ms
-    table += [tc_row, spgemm_row, *spmm_rows]
+    table += [tc_row, spgemm_row, *spmm_rows, *gnn_rows, *pack_rows_]
     for row in table:
         src = KERNELS[row["name"]]
         row.update(route="cuda", replaces=src[0], source=src[1],
@@ -1610,7 +2042,7 @@ def main() -> int:
     spgemm_row["max_abs_err"] = max(spgemm_row["max_abs_err"], hop_err)
     order = list(KERNELS)
     table.sort(key=lambda r: order.index(r["name"]))
-    phase_profile(g, sources[0], road, srcs)
+    phase_profile(g, sources[0], road, srcs, gnn_runs)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,0 +1,21 @@
+"""The GNN configuration: the fields of the reference's
+``repro.configs.base.GNNConfig`` that the GCN forward reads."""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_layers: int
+    d_hidden: int
+    aggregator: str = "sum"    # sum | mean (GCN reads only ``norm``)
+    norm: str = "none"         # sym (D^-1/2 (A + I) D^-1/2) | none (mean)
+    d_in: int = 128
+    n_classes: int = 16
+    # aggregate through the B2SR adjacency (GraphMatrix.mxm) rather than
+    # the float segment sum over the edge list
+    use_b2sr: bool = False
+    tile_dim: int = 32

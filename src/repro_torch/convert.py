@@ -15,9 +15,16 @@ derived from the ELL when its own keys are absent. The same keys with
 the prefix ``t.`` give the transpose. ``meta`` holds ``tile_dim``,
 ``n_rows``, ``n_cols`` and ``nnz`` of the forward orientation.
 
-``frontier_from_reference`` takes the reference's packed frontier words
-(``np.uint32[tiles, t, W]``) into a port ``FrontierBatch``, so one
-operand can be fed to both packages.
+``frontier_from_reference`` and ``bitmatrix_from_reference`` take the
+reference's packed frontier words (``np.uint32[tiles, t, W]``) and
+activation words (``np.uint32[tiles, d]``) into a port ``FrontierBatch``
+and ``BitMatrix``, so one operand can be fed to both packages.
+
+The weights of a model cross over too: ``gcn_state_from_reference``
+turns the reference GCN's ``params`` into the ``state_dict`` of the
+port's ``models.gnn.gcn.GCN``, and ``gnn_model_from_reference`` a served
+model's ``((w, b), ...)`` and features into the arguments of the port's
+``engine.queries.register_gnn_model``.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import torch
 from repro_torch.core import csr as csr_mod
 from repro_torch.core.b2sr import B2SR, B2SRBucketedEll, B2SREll, b2sr_to_coo
 from repro_torch.core.graphblas import GraphMatrix, Orientation
-from repro_torch.core.operands import FrontierBatch
+from repro_torch.core.operands import BitMatrix, FrontierBatch
 from repro_torch.core.words import from_numpy_u32
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -133,3 +140,46 @@ def frontier_from_reference(words: np.ndarray, n: int, n_sources: int,
     return FrontierBatch.from_words(from_numpy_u32(arr,
                                                    resolve_device(device)),
                                     n, n_sources, tile_dim)
+
+
+def bitmatrix_from_reference(words: np.ndarray, n: int, tile_dim: int,
+                             device: DeviceLike = None) -> BitMatrix:
+    """The reference's ``BitMatrix`` words (``np.uint32[ceil(n/t), d]``)
+    as a port :class:`BitMatrix` of the same bits on ``device``."""
+    arr = np.asarray(words, dtype=np.uint32)
+    if arr.ndim != 2 or arr.shape[0] != -(-n // tile_dim):
+        raise ValueError(f"activation words of shape {arr.shape} are not "
+                         f"[{-(-n // tile_dim)}, d]")
+    return BitMatrix.from_words(from_numpy_u32(arr, resolve_device(device)),
+                                n, tile_dim)
+
+
+def _f32(a, dev: torch.device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+
+def gcn_state_from_reference(params: Mapping[str, Mapping[str, np.ndarray]],
+                             device: DeviceLike = None
+                             ) -> Dict[str, torch.Tensor]:
+    """The reference GCN's ``{"layer_i": {"w": [d_in, d_out], "b":
+    [d_out]}}`` (numpy) as the ``state_dict`` of ``GCN``:
+    ``layers.i.weight`` is ``w`` transposed (``nn.Linear`` keeps
+    ``[d_out, d_in]``), ``layers.i.bias`` is ``b``."""
+    dev = resolve_device(device)
+    state = {}
+    for i in range(len(params)):
+        layer = params[f"layer_{i}"]
+        state[f"layers.{i}.weight"] = _f32(layer["w"], dev).T.contiguous()
+        state[f"layers.{i}.bias"] = _f32(layer["b"], dev)
+    return state
+
+
+def gnn_model_from_reference(params, features,
+                             device: DeviceLike = None) -> Dict[str, object]:
+    """A served model's ``((w, b), ...)`` and node features (numpy, the
+    reference's ``GNNModel`` fields) as keyword arguments of the port's
+    ``register_gnn_model`` (float32 tensors on ``device``; ``w`` keeps
+    the ``[d_in, d_out]`` layout both packages serve with)."""
+    dev = resolve_device(device)
+    return {"params": tuple((_f32(w, dev), _f32(b, dev)) for w, b in params),
+            "features": _f32(features, dev), "device": dev}

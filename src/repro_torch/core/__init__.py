@@ -19,8 +19,8 @@ from repro_torch.core.b2sr import (  # noqa: F401
 )
 from repro_torch.core.descriptor import DEFAULT, Descriptor  # noqa: F401
 from repro_torch.core.graphblas import BACKENDS, GraphMatrix  # noqa: F401
-from repro_torch.core.operands import (BitVector, FrontierBatch,  # noqa: F401
-                                      operand_kind)
+from repro_torch.core.operands import (BitMatrix, BitVector,  # noqa: F401
+                                      FrontierBatch, operand_kind)
 from repro_torch.core.semiring import (  # noqa: F401
     ARITHMETIC,
     BOOLEAN,

@@ -309,6 +309,26 @@ def unpack_frontier_matrix(words: torch.Tensor, n: int, n_sources: int,
         :n, :n_sources].to(dtype)
 
 
+def pack_bitmatrix(x: torch.Tensor, tile_dim: int,
+                   n: Optional[int] = None) -> torch.Tensor:
+    """Binarize (``x != 0``) and pack a dense ``[n, d]`` along the node
+    axis: ``int32[ceil(n/t), d]``, word ``[c, j]`` bit ``r`` is entry
+    ``[c*t + r, j]`` (the ``BitMatrix`` layout; the pad rows are 0)."""
+    t = tile_dim
+    n = x.shape[0] if n is None else n
+    nt = ceil_div(n, t)
+    bits = torch.nn.functional.pad((x != 0).to(torch.int32),
+                                   (0, 0, 0, nt * t - x.shape[0]))
+    return pack_bits(bits.view(nt, t, -1).transpose(1, 2))
+
+
+def unpack_bitmatrix(words: torch.Tensor, tile_dim: int, n: int,
+                     dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`pack_bitmatrix`: ``[ceil(n/t), d]`` -> ``[n, d]``."""
+    bits = unpack_bits(words, tile_dim)                  # [T, d, t]
+    return bits.transpose(1, 2).reshape(-1, words.shape[1])[:n].to(dtype)
+
+
 def unpack_tiles(tiles: torch.Tensor, tile_dim: int,
                  dtype=torch.float32) -> torch.Tensor:
     """Words ``[..., t]`` -> dense 0/1 ``[..., t, t]`` (row, col)."""
@@ -333,6 +353,19 @@ def bit_transpose_words(tiles: torch.Tensor, tile_dim: int) -> torch.Tensor:
     """Per-tile bit transpose of words ``[..., t]``: unpack, swap, repack."""
     bits = unpack_bits(tiles, tile_dim)
     return pack_bits(bits.transpose(-1, -2))
+
+
+def pack_dense_tiles(dense: torch.Tensor, tile_dim: int) -> torch.Tensor:
+    """Dense 0/1 ``[n, m]`` -> packed tiles ``int32[ceil(n/t), ceil(m/t),
+    t]``: word ``[R, C, r]`` bit ``c`` is entry ``[R*t + r, C*t + c]``
+    (zero padded to whole tiles)."""
+    t = tile_dim
+    r_pad = ceil_div(dense.shape[0], t) * t
+    c_pad = ceil_div(dense.shape[1], t) * t
+    d = torch.nn.functional.pad((dense != 0).to(torch.int32),
+                                (0, c_pad - dense.shape[1],
+                                 0, r_pad - dense.shape[0]))
+    return pack_bits(d.view(r_pad // t, t, c_pad // t, t).transpose(1, 2))
 
 
 def ell_to_packed_grid(ell: B2SREll) -> torch.Tensor:

@@ -4,11 +4,13 @@ The GraphBLAST/cuSPARSE stand-in: the packed operand is unpacked to
 float32, multiplied on the float CSR twin and repacked. Bucketing never
 applies to CSR, so every entry registers for both ``bucketed`` flags.
 
-The dense and frontier mxm rows are one ``torch.sparse.mm`` of the CSR
-(``csr.spmm``), the frontiers unpacked to float32 ``[n, 32W]`` and the
-product's entries > 0 packed back. The graph rows: the boolean SpGEMM
-returns a B2SR built from the sparse product (``csr.mxm_bool``) and the
-triangle sum intersects sorted rows (``csr.tri_sum``); both stay sparse
+The dense, frontier and bitmat mxm rows are one ``torch.sparse.mm`` of
+the CSR (``csr.spmm``): the frontiers unpacked to float32 ``[n, 32W]``
+and the product's entries > 0 packed back, the ``BitMatrix`` words
+unpacked to float32 ``[n, d]`` and the counts cast to ``out_dtype``.
+The graph rows: the boolean SpGEMM returns a B2SR built from the sparse
+product (``csr.mxm_bool``) and the triangle sum intersects sorted rows
+(``csr.tri_sum``); both stay sparse
 where the reference densifies to ``[n, n]``. The count rows return the
 dense float32 counts, as the reference's do, so they are for small sizes
 only.
@@ -22,6 +24,7 @@ from repro_torch.core import csr as csr_mod
 from repro_torch.core.b2sr import (pack_bitvector, pack_frontier_matrix,
                                    unpack_bitvector, unpack_frontier_matrix)
 from repro_torch.core.dispatch import BOTH, apply_output_mask, register
+from repro_torch.core.operands import BitMatrix
 from repro_torch.core.ops import apply_frontier_mask
 from repro_torch.core.semiring import ARITHMETIC
 
@@ -77,6 +80,19 @@ def _mxm_dense(g, x, call):
 @register("mxm", "dense", "full", "csr", bucketed=BOTH, masked=True)
 def _mxm_dense_masked(g, x, call):
     y = csr_mod.spmm(g.csr, x)
+    return apply_output_mask(y, call.mask, call.complement,
+                             call.semiring.identity_for(y.dtype))
+
+
+@register("mxm", "bitmat", "full", "csr", bucketed=BOTH, masked=False)
+def _mxm_bitmat(g, xw, call):
+    x = BitMatrix.from_words(xw, g.n_cols, g.tile_dim).unpack(torch.float32)
+    return csr_mod.spmm(g.csr, x).to(call.out_dtype)
+
+
+@register("mxm", "bitmat", "full", "csr", bucketed=BOTH, masked=True)
+def _mxm_bitmat_masked(g, xw, call):
+    y = _mxm_bitmat(g, xw, call)
     return apply_output_mask(y, call.mask, call.complement,
                              call.semiring.identity_for(y.dtype))
 

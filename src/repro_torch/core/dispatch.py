@@ -11,8 +11,9 @@ keyed by the full Table II/III coordinate (the reference's key):
             ``FrontierBatch``, masked-only, selected by
             ``Descriptor(direction="pull")``)
   rhs       operand kind of the right-hand side: "dense" | "bitvec" |
-            "frontier" (a FrontierBatch) | "graph" (a GraphMatrix) | "tri"
-            (the memoized lower-triangle operand of ``tri_count``)
+            "frontier" (a FrontierBatch) | "bitmat" (a BitMatrix) |
+            "graph" (a GraphMatrix) | "tri" (the memoized lower-triangle
+            operand of ``tri_count``)
   out       "bin" (packed words; a B2SR for SpGEMM) | "full" (dense
             values)
   backend   "b2sr" (torch word schemes, ``repro_torch.core.ops``)
@@ -46,7 +47,7 @@ OPS = ("mxv", "mxm", "mxm_sum", "mxv_pull", "mxm_pull")
 #: masked by construction, and pull without the visited mask has nothing
 #: to exit on.
 MASKED_ONLY_OPS = ("mxm_sum", "mxv_pull", "mxm_pull")
-RHS_KINDS = ("dense", "bitvec", "frontier", "graph", "tri")
+RHS_KINDS = ("dense", "bitvec", "frontier", "bitmat", "graph", "tri")
 OUT_KINDS = ("bin", "full")
 
 _REGISTRY: Dict[Key, Callable] = {}

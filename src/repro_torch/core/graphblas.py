@@ -1,11 +1,11 @@
 """High-level GraphBLAS matrix object: the generic operation API.
 
 The torch twin of ``repro.core.graphblas.GraphMatrix`` for the mxv rows
-and the mxm rows over graph, dense and ``FrontierBatch`` operands, with
-the multi-source entry points ``msbfs`` and ``ppr`` (``engine``). A
-``GraphMatrix`` holds, for each
-stored orientation (the matrix and its transpose), the B2SR arrays and
-the float CSR baseline twin, all on one device. ``mxv`` and ``mxm``
+and the mxm rows over graph, dense, ``FrontierBatch`` and ``BitMatrix``
+operands, with the multi-source entry points ``msbfs`` and ``ppr``
+(``engine``). A ``GraphMatrix`` holds, for each stored orientation (the
+matrix and its transpose), the B2SR arrays and the float CSR baseline
+twin, all on one device. ``mxv`` and ``mxm``
 resolve the Table II/III row from the operand type and the semiring and
 look the implementation up in ``repro_torch.core.dispatch`` under
 ``(op, rhs, out, backend, bucketed, masked, sharded)``; ``tri_count`` is
@@ -60,7 +60,7 @@ class Orientation:
         self.ell: Optional[B2SREll] = None
         self.buckets: Optional[B2SRBucketedEll] = None
         #: what the ``b2sr_cuda`` rows derive from ``b2sr`` once (the
-        #: SpMM kernels' work items), by name
+        #: SpMM kernels' work items), by key
         self.cache: Dict[str, Any] = {}
 
     @property
@@ -329,8 +329,8 @@ class GraphMatrix:
 
     def mxm(self, other=None, semiring: Optional[Semiring] = None,
             desc: Optional[Descriptor] = None, *, out=None,
-            with_transpose: bool = True, mask=_UNSET, complement=_UNSET,
-            row_chunk=_UNSET):
+            with_transpose: bool = True, out_dtype=None, mask=_UNSET,
+            complement=_UNSET, row_chunk=_UNSET):
         """C⟨M⟩ = A ⊕.⊗ B — the generic matrix product (paper Table III).
 
           ``GraphMatrix`` B,    bin·bin→bin boolean SpGEMM: a new
@@ -345,32 +345,33 @@ class GraphMatrix:
           ``FrontierBatch`` F   bin·bin→bin widened: one traversal for S
                                 packed frontiers (the multi-source
                                 engine); returns a ``FrontierBatch``
+          ``BitMatrix`` B       bin·bin→full: popcount counts ``[n_rows,
+                                d]`` over packed binarized activations
+                                (the BitGNN layer), in ``out_dtype``
+                                (default float32); arithmetic only
 
-        ``semiring`` defaults to arithmetic for a dense operand and to
-        boolean otherwise. Masks are structural and applied right before
-        the store (paper §V): a ``GraphMatrix`` for SpGEMM, a
-        ``FrontierBatch`` for frontiers, a dense (or ``BitVector``) mask
-        for dense outputs, where a vector masks whole rows.
+        ``semiring`` defaults to arithmetic for a dense or ``BitMatrix``
+        operand and to boolean otherwise. Masks are structural and
+        applied right before the store (paper §V): a ``GraphMatrix`` for
+        SpGEMM, a ``FrontierBatch`` for frontiers, a dense (or
+        ``BitVector``) mask for dense and count outputs, where a vector
+        masks whole rows.
         ``desc.replace=False`` merges the masked-out entries from ``out``;
         ``with_transpose`` decides whether a boolean SpGEMM result stores
-        its transpose. ``BitMatrix`` operands come with the GNN slice.
+        its transpose.
         """
         desc = descriptor_mod.merge_sugar(desc, mask, complement, row_chunk)
         if desc.transpose_a:
             return self.transposed().mxm(
                 other, semiring, desc.replace_with(transpose_a=False),
-                out=out, with_transpose=with_transpose)
+                out=out, with_transpose=with_transpose, out_dtype=out_dtype)
         other = self if other is None else other
         kind = operand_kind(other)
         if kind == "bitvec":
             raise TypeError("mxm right-hand side is a BitVector; use mxv "
                             "for packed vector operands")
-        if kind == "bitmat":
-            raise NotImplementedError(
-                "mxm over a BitMatrix operand (the BitGNN rows) is not "
-                "ported yet (ROADMAP Queue 1 item 7)")
         semiring = semiring if semiring is not None else (
-            ARITHMETIC if kind == "dense" else BOOLEAN)
+            ARITHMETIC if kind in ("dense", "bitmat") else BOOLEAN)
         dispatch.check_semiring("mxm", kind, semiring)
         out_kind = dispatch.out_kind_for(semiring, kind)
         if kind == "graph":
@@ -380,7 +381,7 @@ class GraphMatrix:
             if self.backend != "csr" and self.tile_dim != other.tile_dim:
                 raise ValueError(f"tile_dim mismatch: {self.tile_dim} vs "
                                  f"{other.tile_dim}")
-        elif kind == "frontier":
+        elif kind in ("frontier", "bitmat"):
             check_operand(other, self.tile_dim, self.n_cols, "B")
         elif other.dim() != 2 or other.shape[0] != self.n_cols:
             raise ValueError(f"dense operand shape {tuple(other.shape)} is "
@@ -388,16 +389,20 @@ class GraphMatrix:
         norm_mask = (self._norm_graph_mask(desc.mask, out_kind, other)
                      if kind == "graph" else
                      self._norm_mask(desc.mask, kind, out_kind))
-        if kind == "dense" and norm_mask is not None and norm_mask.dim() == 1:
+        if (kind in ("dense", "bitmat") and norm_mask is not None
+                and norm_mask.dim() == 1):
             norm_mask = norm_mask[:, None]      # a vector mask masks rows
-        call = OpCall(semiring=semiring, mask=norm_mask,
-                      complement=desc.complement, row_chunk=desc.row_chunk)
+        call = OpCall(
+            semiring=semiring, mask=norm_mask, complement=desc.complement,
+            row_chunk=desc.row_chunk,
+            out_dtype=out_dtype if out_dtype is not None else torch.float32)
         op = self._direction_op("mxm", desc, kind, "frontier", out_kind,
                                 call.mask is not None)
         impl = dispatch.resolve(op, kind, out_kind, self.backend,
                                 self._bucketed(desc.row_chunk),
                                 call.mask is not None)
-        y = impl(self, other.words if kind == "frontier" else other, call)
+        y = impl(self, other.words if kind in ("frontier", "bitmat")
+                 else other, call)
         if kind == "graph":
             if out_kind == "bin":
                 return self._to_graph(y, desc, out, with_transpose)

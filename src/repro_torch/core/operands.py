@@ -4,9 +4,9 @@
 bit-pattern word per ``tile_dim`` entries, LSB first (the
 ``pack_bitvector`` layout). ``FrontierBatch`` is the multi-source twin:
 S such vectors packed 32 sources to a word (``pack_frontier_matrix``).
-Plain tensors are dense vectors or matrices, and a ``GraphMatrix`` is
-the SpGEMM operand. The BitGNN ``BitMatrix`` operand comes with its
-slice (ROADMAP Queue 1 item 7).
+``BitMatrix`` holds binarized activations of the BitGNN layers, one
+word column per feature. Plain tensors are dense vectors or matrices,
+and a ``GraphMatrix`` is the SpGEMM operand.
 """
 
 from __future__ import annotations
@@ -16,8 +16,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.b2sr import (SOURCE_WORD_BITS, pack_bitvector,
-                                   pack_frontier_matrix, unpack_bitvector,
+from repro_torch.core.b2sr import (SOURCE_WORD_BITS, pack_bitmatrix,
+                                   pack_bitvector, pack_frontier_matrix,
+                                   unpack_bitmatrix, unpack_bitvector,
                                    unpack_frontier_matrix)
 from repro_torch.core.words import WORD
 
@@ -126,17 +127,74 @@ class FrontierBatch:
         return self._like(~self.words)
 
 
-def operand_kind(x) -> str:
-    """Classify a right-hand operand for dispatch: the Table II/III column.
+@dataclasses.dataclass(frozen=True)
+class BitMatrix:
+    """A bit-packed binarized activation matrix (BitGNN layer input).
 
-    A ``BitMatrix`` (packed activations: ``words`` and a feature width
-    ``d``) is recognised structurally; the port has no such operand yet.
+    ``words[c, j]`` packs entries ``X[c*t .. c*t + t-1, j]`` LSB first
+    (only the low ``tile_dim`` bits are used): the node axis shares the
+    ``pack_bitvector`` tile layout, so a B2SR column index picks a word
+    row, while each feature keeps its own word column. The bitmat mxm
+    rows sum ``popcount(tile_word & word)`` over these words, the (+, AND)
+    semiring of the XNOR formulation; sign decoding and the α scale live
+    in ``repro_torch.gnn_bit``.
     """
+
+    words: torch.Tensor         # int32[ceil(n / tile_dim), d]
+    n: int                      # logical node count (trailing pad bits 0)
+    tile_dim: int
+
+    @classmethod
+    def pack(cls, x: torch.Tensor, tile_dim: int,
+             n: Optional[int] = None) -> "BitMatrix":
+        """Binarize (``x != 0``) and pack a dense ``[n, d]`` along n."""
+        n = int(x.shape[0]) if n is None else n
+        return cls(words=pack_bitmatrix(x, tile_dim, n), n=n,
+                   tile_dim=tile_dim)
+
+    @classmethod
+    def from_words(cls, words: torch.Tensor, n: int,
+                   tile_dim: int) -> "BitMatrix":
+        if words.dtype != WORD or words.dim() != 2:
+            raise TypeError(f"BitMatrix words must be int32 bit patterns "
+                            f"[tiles, d], got {words.dtype} "
+                            f"{tuple(words.shape)}")
+        return cls(words=words, n=n, tile_dim=tile_dim)
+
+    @property
+    def d(self) -> int:
+        """Feature width (one word column per feature)."""
+        return int(self.words.shape[1])
+
+    def unpack(self, dtype=torch.float32) -> torch.Tensor:
+        return unpack_bitmatrix(self.words, self.tile_dim, self.n, dtype)
+
+    def any(self) -> torch.Tensor:
+        """Whether any bit is set (a device tensor; no host sync)."""
+        return torch.any(self.words != 0)
+
+    def _like(self, words: torch.Tensor) -> "BitMatrix":
+        return BitMatrix(words=words, n=self.n, tile_dim=self.tile_dim)
+
+    def __or__(self, other: "BitMatrix") -> "BitMatrix":
+        return self._like(self.words | other.words)
+
+    def __and__(self, other: "BitMatrix") -> "BitMatrix":
+        return self._like(self.words & other.words)
+
+    def __invert__(self) -> "BitMatrix":
+        # pad bits above ``n`` flip to 1; the schemes never read past
+        # n_tile_cols and ``unpack`` slices them off
+        return self._like(~self.words)
+
+
+def operand_kind(x) -> str:
+    """Classify a right-hand operand for dispatch: the Table II/III column."""
     if isinstance(x, BitVector):
         return "bitvec"
     if isinstance(x, FrontierBatch):
         return "frontier"
-    if hasattr(x, "words") and hasattr(x, "d"):
+    if isinstance(x, BitMatrix):
         return "bitmat"
     # GraphMatrix, structurally (it lives above this module); ``fwd`` is a
     # plain field, where reading ``csr`` would build the lazy CSR twin
@@ -152,3 +210,6 @@ def check_operand(x, tile_dim: int, n: int, what: str) -> None:
                          f"{tile_dim}")
     if x.n != n:
         raise ValueError(f"{what} length {x.n} != expected {n}")
+    if isinstance(x, BitMatrix) and x.words.shape[0] != -(-n // tile_dim):
+        raise ValueError(f"{what} has {x.words.shape[0]} word rows, "
+                         f"expected {-(-n // tile_dim)}")

@@ -10,6 +10,8 @@ Table III mxm rows over graph operands:
   spmm_b2sr           A:1-bit, X:full,  Y:full    (dense SpMM: batched PPR)
   spmm_bin_bin_bin    A:1-bit, F:1-bit, Y:1-bit   (S packed frontiers:
                                                    the multi-source engine)
+  spmm_bin_bin_full   A:1-bit, X:1-bit, Y:counts  (packed activations:
+                                                   the BitGNN layer)
   mxm_bin_bin_bin     A:1-bit, B:1-bit, C:1-bit   (boolean SpGEMM, k-hop)
   mxm_bin_bin_full    A:1-bit, B:1-bit, C:counts  (common neighbours)
   bmm_bin_bin_sum_masked   Σ mask ⊙ (A·B)         (triangle counting)
@@ -317,6 +319,50 @@ def spmm_b2sr_bucketed(b: B2SRBucketedEll, x: torch.Tensor,
     for col, tiles, rows in zip(b.col_idx, b.bit_tiles, b.rows):
         out[rows.long()] = _spmm_block(col, tiles, x3, t, out_dtype)
     return out.reshape(-1, x.shape[1])[: b.n_rows]
+
+
+# ---------------------------------------------------------------------------
+# SpMM over packed activation matrices: bin·bin→full (the BitGNN layer)
+# ---------------------------------------------------------------------------
+
+def _spmm_bbf_block(col_idx: torch.Tensor, tiles: torch.Tensor,
+                    xw: torch.Tensor, out_dtype) -> torch.Tensor:
+    """bin·bin→full on one ELL slab against ``BitMatrix`` words.
+
+    ``xw`` is ``int32[n_tile_cols, d]``; per output element
+    ``y[i*t+r, j] = Σ_k popcount(tile_word_r(i, k) & xw[col(i, k), j])``,
+    the feature-wide ``_bmv_bbf_block``, walked over K as the reference's
+    scan does. Returns counts ``[R, t, d]``.
+    """
+    acc = torch.zeros((col_idx.shape[0], tiles.shape[2], xw.shape[1]),
+                      dtype=torch.int64, device=xw.device)
+    for k in range(col_idx.shape[1]):
+        cols = col_idx[:, k]                                   # [R]
+        xk = torch.where((cols >= 0)[:, None],
+                         xw[cols.clamp(0, xw.shape[0] - 1).long()], 0)
+        acc += popcount(tiles[:, k, :, None] & xk[:, None, :])  # [R, t, d]
+    return acc.to(out_dtype)
+
+
+def spmm_bin_bin_full(ell: B2SREll, xw: torch.Tensor, out_dtype=torch.float32,
+                      row_chunk: Optional[int] = None) -> torch.Tensor:
+    """BitGNN aggregation: packed adjacency × ``BitMatrix`` words →
+    popcount counts ``[n_rows, d]`` in ``out_dtype``; the α and sign
+    reconstruction is the caller's (``repro_torch.gnn_bit``)."""
+    out = _mapped_over_rows(
+        lambda c, tl: _spmm_bbf_block(c, tl, xw, out_dtype),
+        (ell.tile_col_idx, ell.bit_tiles), ell.n_tile_rows, row_chunk)
+    return out.reshape(-1, xw.shape[1])[: ell.n_rows]
+
+
+def spmm_bin_bin_full_bucketed(b: B2SRBucketedEll, xw: torch.Tensor,
+                               out_dtype=torch.float32) -> torch.Tensor:
+    """Bucketed BitGNN aggregation: empty tile-rows keep the 0 count."""
+    out = torch.zeros((b.n_tile_rows, b.tile_dim, xw.shape[1]),
+                      dtype=out_dtype, device=xw.device)
+    for col, tiles, rows in zip(b.col_idx, b.bit_tiles, b.rows):
+        out[rows.long()] = _spmm_bbf_block(col, tiles, xw, out_dtype)
+    return out.reshape(-1, xw.shape[1])[: b.n_rows]
 
 
 # ---------------------------------------------------------------------------
@@ -743,6 +789,30 @@ def _mxm_dense_bucketed(g, x, call):
 @register("mxm", "dense", "full", "b2sr", bucketed=True, masked=True)
 def _mxm_dense_bucketed_masked(g, x, call):
     y = spmm_b2sr_bucketed(g.buckets(), x)
+    return apply_output_mask(y, call.mask, call.complement,
+                             call.semiring.identity_for(y.dtype))
+
+
+@register("mxm", "bitmat", "full", "b2sr", bucketed=False, masked=False)
+def _mxm_bitmat(g, xw, call):
+    return spmm_bin_bin_full(g.ell, xw, call.out_dtype, call.row_chunk)
+
+
+@register("mxm", "bitmat", "full", "b2sr", bucketed=False, masked=True)
+def _mxm_bitmat_masked(g, xw, call):
+    y = spmm_bin_bin_full(g.ell, xw, call.out_dtype, call.row_chunk)
+    return apply_output_mask(y, call.mask, call.complement,
+                             call.semiring.identity_for(y.dtype))
+
+
+@register("mxm", "bitmat", "full", "b2sr", bucketed=True, masked=False)
+def _mxm_bitmat_bucketed(g, xw, call):
+    return spmm_bin_bin_full_bucketed(g.buckets(), xw, call.out_dtype)
+
+
+@register("mxm", "bitmat", "full", "b2sr", bucketed=True, masked=True)
+def _mxm_bitmat_bucketed_masked(g, xw, call):
+    y = spmm_bin_bin_full_bucketed(g.buckets(), xw, call.out_dtype)
     return apply_output_mask(y, call.mask, call.complement,
                              call.semiring.identity_for(y.dtype))
 

@@ -1,8 +1,8 @@
 """Batched multi-source query engine.
 
 Turns many single-source questions into a few wide bit-matrix launches:
-frontier matrices and the query loops (``queries``), launch-plan caching
-(``planner``) and request coalescing (``batcher``).
+frontier matrices, the query loops and GNN inference (``queries``),
+launch-plan caching (``planner``) and request coalescing (``batcher``).
 """
 
 from repro_torch.engine.batcher import (KINDS, BatchFlushError,  # noqa: F401
@@ -13,5 +13,7 @@ from repro_torch.engine.planner import (DEFAULT_PLANNER, Plan,  # noqa: F401
                                         PlanCache, PlanKey, descriptor_key,
                                         plan_key)
 from repro_torch.engine.queries import (BatchedPPRResult,  # noqa: F401
+                                        GNNInferResult, GNNModel,
                                         MSBFSResult, MSSSSPResult,
-                                        batched_ppr, ms_sssp, msbfs, mskhop)
+                                        batched_ppr, gnn_infer, ms_sssp,
+                                        msbfs, mskhop, register_gnn_model)

@@ -12,9 +12,10 @@ so rounded widths collapse arbitrary traffic (3 queries, then 9, then
 source and are dropped at scatter-back; columns are independent, so a
 duplicate costs only lanes that word packing had reserved anyway.
 
-The reference's trace spans and registry counters wait for the port's
-telemetry slice (ROADMAP Queue 1 item 8); the ``gnn_infer`` kind waits
-for the GNN slice (item 7).
+``gnn_infer`` queries group by model name (a query parameter), so each
+model's queries share one forward. The reference's trace spans and
+registry counters wait for the port's telemetry slice (ROADMAP Queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-#: Query kinds of the coalescing layer (``gnn_infer`` is not ported yet).
+#: Query kinds of the coalescing layer.
 KINDS = ("bfs", "khop", "sssp", "ppr", "gnn_infer")
 
 
@@ -46,10 +47,6 @@ def validate_query(graph: GraphMatrix, kind: str, source) -> int:
     if kind not in KINDS:
         raise ValueError(f"unknown query kind {kind!r}; expected one "
                          f"of {KINDS}")
-    if kind == "gnn_infer":
-        raise NotImplementedError(
-            "gnn_infer queries need the BitGNN layers, which are not ported "
-            "yet (ROADMAP Queue 1 item 7)")
     s = int(source)
     if not 0 <= s < graph.n_rows:
         raise ValueError(
@@ -137,9 +134,10 @@ class QueryBatcher:
     """Coalesces single-source queries into batched engine launches.
 
     ``kind`` is ``"bfs"`` (-> levels ``int32[n]``), ``"khop"`` (-> reached
-    ``bool[n]``), ``"sssp"`` (-> distances ``f32[n]``) or ``"ppr"`` (->
-    ranks ``f32[n]``): each handle resolves to what the single-source
-    algorithm returns for that query.
+    ``bool[n]``), ``"sssp"`` (-> distances ``f32[n]``), ``"ppr"`` (->
+    ranks ``f32[n]``) or ``"gnn_infer"`` (-> class scores
+    ``f32[n_classes]``): each handle resolves to what the single-query
+    call returns for that query.
     """
 
     def __init__(self, planner: Optional[PlanCache] = None,
@@ -180,8 +178,8 @@ class QueryBatcher:
 
     def gnn_infer(self, graph: GraphMatrix, node: int,
                   model: str) -> QueryHandle:
-        """Class scores of ``node`` from a registered GNN model: raises
-        ``NotImplementedError`` until the GNN slice is ported."""
+        """Class scores of ``node`` from a registered GNN model
+        (``engine.queries.register_gnn_model``): ``float32[n_classes]``."""
         return self.submit(graph, "gnn_infer", node, model=model)
 
     # -- execution ----------------------------------------------------------
@@ -247,6 +245,8 @@ def launch_group(g: GraphMatrix, kind: str, params: dict,
                               **params).distances
     elif kind == "ppr":
         out = queries.batched_ppr(g, padded, planner=planner, **params).ranks
+    elif kind == "gnn_infer":
+        out = queries.gnn_infer(g, padded, planner=planner, **params).logits
     else:
         raise NotImplementedError(f"query kind {kind!r} has no engine "
                                   f"launch in the port")

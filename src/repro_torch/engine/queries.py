@@ -13,12 +13,19 @@ The reference runs each loop as one ``lax.while_loop``; here it runs on
 the host with one sync per iteration: the frontier and visited popcounts
 (msbfs), whether the frontier is empty (mskhop), or the L1 change (PPR).
 
-Parity contracts (held by ``tests/test_torch_engine.py``):
+``gnn_infer`` serves class scores of a registered GNN model
+(``register_gnn_model``) for a batch of nodes through one full-graph
+forward, its hidden layers on the packed bit path.
+
+Parity contracts (held by ``tests/test_torch_engine.py`` and
+``tests/test_torch_gnn.py``):
   - ``msbfs`` / ``mskhop`` / ``ms_sssp`` column ``s`` equals the
     single-source run on ``sources[s]`` bit for bit, and the reference's
     batched result.
   - ``batched_ppr`` column ``s`` is allclose to ``algorithms.ppr`` (the
     batched SpMM sums in another order than the mxv).
+  - ``gnn_infer`` column ``s`` is the model's logits of ``sources[s]``,
+    allclose to the reference's.
 """
 
 from __future__ import annotations
@@ -38,8 +45,10 @@ from repro_torch.core.descriptor import Descriptor
 from repro_torch.core.graphblas import GraphMatrix
 from repro_torch.core.operands import FrontierBatch
 from repro_torch.core.words import to_int32
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import planner as planner_mod
 from repro_torch.engine.planner import PlanCache, descriptor_key, plan_key
+from repro_torch.gnn_bit import binarize as binarize_mod
 
 #: The descriptor every masked-traversal loop bakes in: the per-source
 #: visited sets as a complement mask (built inside the loop).
@@ -69,6 +78,12 @@ class MSSSSPResult:
 class BatchedPPRResult:
     ranks: torch.Tensor      # float32[n, S]; column s = PPR from seeds[s]
     n_iterations: int
+
+
+@dataclasses.dataclass
+class GNNInferResult:
+    logits: torch.Tensor     # float32[n_classes, S]; column s = sources[s]
+    n_layers: int
 
 
 def _check_sources(sources, n: int) -> np.ndarray:
@@ -309,3 +324,121 @@ def batched_ppr(g: GraphMatrix,
                                  lambda: _build_ppr_plan(g))
     ranks, it = plan(restart, alpha, eps, int(max_iters))
     return BatchedPPRResult(ranks=ranks[:, :s], n_iterations=it)
+
+
+# ---------------------------------------------------------------------------
+# batched GNN inference (the BitGNN forward on the bit path)
+# ---------------------------------------------------------------------------
+
+#: Served models by name: weights, input features and the bit-path flag.
+#: Names (not tensors) travel in the query parameters, so the batcher's
+#: groups coalesce by model.
+_GNN_MODELS: dict = {}
+
+
+@dataclasses.dataclass
+class GNNModel:
+    """A registered inference model: per-layer (W, b) and node features.
+
+    ``binarize=True`` sends every hidden layer's aggregation through the
+    packed bin·bin→full row: the activations are packed as ``x > 0`` to
+    ``BitMatrix`` words and aggregated as α·(2·popcount − rowsum)
+    (``repro_torch.gnn_bit``); the input layer always aggregates dense
+    (float features). ``version`` is part of the plan key, so a name
+    registered again never serves a stale forward.
+    """
+
+    name: str
+    params: tuple            # ((w [d_in, d_out], b [d_out]), ...) per layer
+    features: torch.Tensor   # float32[n, d_in]
+    binarize: bool = True
+    version: int = 0
+
+
+def register_gnn_model(name: str, params, features, binarize: bool = True,
+                       device: DeviceLike = None) -> GNNModel:
+    """Register (or replace) a model for ``gnn_infer`` on ``device``
+    (``None`` = CUDA). ``params`` is ``((w, b), ...)`` with ``w`` as
+    ``[d_in, d_out]`` (the reference's layout), numpy or torch; tensors
+    already float32 on ``device`` are kept, not copied."""
+    dev = resolve_device(device)
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    prev = _GNN_MODELS.get(name)
+    model = GNNModel(name=name,
+                     params=tuple((f32(w), f32(b)) for w, b in params),
+                     features=f32(features), binarize=binarize,
+                     version=prev.version + 1 if prev is not None else 0)
+    _GNN_MODELS[name] = model
+    return model
+
+
+def _gnn_model(name: str) -> GNNModel:
+    m = _GNN_MODELS.get(name)
+    if m is None:
+        raise ValueError(
+            f"no GNN model registered under {name!r}; call "
+            f"engine.queries.register_gnn_model first "
+            f"(registered: {sorted(_GNN_MODELS) or 'none'})")
+    return m
+
+
+def _build_gnn_plan(g: GraphMatrix, model: GNNModel):
+    rowsum = g.degrees().to(torch.float32)          # A's row sums
+    params = model.params
+    n_last = len(params) - 1
+
+    @torch.no_grad()
+    def fwd(idx: torch.Tensor) -> torch.Tensor:
+        h = model.features
+        for li, (w, b) in enumerate(params):
+            if model.binarize and li > 0:
+                # hidden layers on the packed path: pack h > 0, one
+                # bin·bin→full mxm, the α·popcount reconstruction
+                alpha = binarize_mod.alpha_scale(h)
+                bm = binarize_mod.pack_activations(h, g.tile_dim)
+                counts = g.mxm(bm)
+                agg = alpha[None, :] * (2.0 * counts - rowsum[:, None]) + h
+            else:
+                agg = g.mxm(h)
+                agg += h          # the self loop, in place (A·X is fresh)
+            h = agg @ w + b
+            del agg
+            if li < n_last:
+                h = torch.relu(h)
+        return h[idx].T                             # [n_classes, s_pad]
+
+    return fwd
+
+
+def gnn_infer(g: GraphMatrix, sources: Sequence[int], model: str,
+              planner: Optional[PlanCache] = None) -> GNNInferResult:
+    """Class scores for a batch of nodes through one full-graph forward.
+
+    One plan per (graph, model version, padded width) serves every batch:
+    the forward computes the logits of all nodes (the aggregations are
+    shared, which is the batching win) and gathers the requested rows.
+    Column ``s`` of ``logits`` belongs to ``sources[s]``.
+    """
+    m = _gnn_model(model)
+    n = g.n_rows
+    if int(m.features.shape[0]) != n:
+        raise ValueError(
+            f"model {model!r} features cover {int(m.features.shape[0])} "
+            f"nodes but the graph has {n}")
+    if m.features.device != g.device:
+        raise ValueError(f"model {model!r} is on {m.features.device}, the "
+                         f"graph on {g.device}")
+    src = _check_sources(sources, n)
+    s_pad = _padded_width(src.size)
+    padded = np.concatenate(
+        [src, np.full(s_pad - src.size, src[0], np.int64)])
+    plan = _planner(planner).get(
+        plan_key(g, "gnn_infer", s_pad,
+                 desc=("gnn", m.name, m.version, m.binarize)),
+        lambda: _build_gnn_plan(g, m))
+    logits = plan(torch.as_tensor(padded, device=g.device))
+    return GNNInferResult(logits=logits[:, : src.size],
+                          n_layers=len(m.params))

@@ -1,1 +1,2 @@
-"""B2SR SpMM: the multi-frontier traversal and the dense SpMM."""
+"""B2SR SpMM: the multi-frontier traversal, the dense SpMM and the
+popcount SpMM of the BitGNN layers."""

@@ -11,6 +11,8 @@ edges at a time, so nothing shares the kernels' tile arithmetic:
               mask: the reference oracle's "unpack, multiply, re-pack".
   spmm_dense  ``Y = A · X`` summed in float64 and rounded to float32 once,
               so it is the float32 rounding of a nearly exact sum.
+  spmm_bbf    unpack the ``BitMatrix`` words to 0/1 ``[n_cols, D]`` and
+              add them up per output row in int64: the counts.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from repro_torch.core.b2sr import (B2SR, SOURCE_WORD_BITS, b2sr_to_coo,
                                    pack_frontier_matrix,
                                    unpack_frontier_matrix)
+from repro_torch.core.operands import BitMatrix
 
 EDGE_CHUNK = 1 << 20
 
@@ -56,3 +59,15 @@ def spmm_dense(m: B2SR, x: torch.Tensor) -> torch.Tensor:
     for rows, cols in _edge_chunks(m):
         y.index_add_(0, rows, x[cols].to(torch.float64))
     return y.to(x.dtype)
+
+
+def spmm_bbf(m: B2SR, xw: torch.Tensor,
+             out_dtype=torch.float32) -> torch.Tensor:
+    """Counts ``Y = A · unpack(xw)`` for ``BitMatrix`` words ``xw``
+    ``int32[n_tile_cols, D]``: ``[n_rows, D]`` in ``out_dtype``."""
+    x = BitMatrix.from_words(xw, m.n_cols, m.tile_dim).unpack(torch.int64)
+    y = torch.zeros((m.n_rows, x.shape[1]), dtype=torch.int64,
+                    device=xw.device)
+    for rows, cols in _edge_chunks(m):
+        y.index_add_(0, rows, x[cols])
+    return y.to(out_dtype)

@@ -4,8 +4,11 @@
               (multi-frontier traversal over packed frontier matrices)
   spmm_dense  replaces ``repro.kernels.spmm.spmm.spmm_pallas``
               (``Y = A · X`` with a dense float32 ``X``)
+  spmm_bbf    replaces ``repro.kernels.spmm.spmm.spmm_bbf_pallas``
+              (popcount counts of A over ``BitMatrix`` words: the BitGNN
+              aggregation)
 
-Both take the B2SR as it is (no ELL padding, one launch per call) and
+All three take the B2SR as it is (no ELL padding, one launch per call) and
 cut each tile-row into work items (:func:`work_items`), runs of its
 tiles of bounded work that a warp takes each, so that a hub tile-row
 spreads over many warps; a caller may pass the items it keeps for the
@@ -36,9 +39,13 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _BBB_ARGS = [_PTR] * 4 + [_INT] + [_PTR] * 4 + [_INT] * 4 + [_PTR]
 _DENSE_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 3 + [_INT] + [_PTR] * 3 + \
     [_INT] * 3 + [_PTR]
+_BBF_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 2 + [_INT] * 2 + [_PTR]
 #: work of a ``spmm_bbb`` item, in tiles: lanes take one tile each, so an
 #: item is 8 steps of a warp
 BBB_ITEM_WORK = 256
+#: work of a ``spmm_bbf`` item, in tiles: a lane group reads a tile's
+#: words and one word of XW per tile, whatever its set bits
+BBF_ITEM_WORK = 256
 #: work of a ``spmm_dense`` item, in set bits plus one per tile (the warp
 #: reads a row of X per set bit); a longer tile-row is cut, its items'
 #: partial sums added in a second launch
@@ -198,5 +205,36 @@ def spmm_dense(m: B2SR, x: torch.Tensor, *,
     return y
 
 
+def spmm_bbf(m: B2SR, xw: torch.Tensor, out_dtype=torch.float32, *,
+             items: Optional[WorkItems] = None) -> torch.Tensor:
+    """BitGNN aggregation ``Y[r, j] = Σ popcount(A_word_r & xw[col, j])``
+    over tiles: ``xw`` int32 ``[n_tile_cols, D]`` (``BitMatrix`` words,
+    any D, unpadded), ``Y`` ``[n_rows, D]`` counts in ``out_dtype``."""
+    t = m.tile_dim
+    common.check_b2sr("a", m, xw.device, t)
+    if xw.dim() != 2:
+        raise ValueError(f"xw must be [n_tile_cols, D], got "
+                         f"{tuple(xw.shape)}")
+    d = xw.shape[1]
+    _check_words("xw", xw, (m.n_tile_cols, d), m.device)
+    if xw.device.type != "cuda":
+        return ref.spmm_bbf(m, xw, out_dtype)
+    _check_aligned(m)
+    if items is None:
+        items = work_items(m, BBF_ITEM_WORK)
+    _check_items(items, m)
+    y = torch.zeros((m.n_tile_rows * t, d), dtype=torch.int32,
+                    device=xw.device)
+    if items.n_items and d:
+        common.call(SOURCE, "spmm_bbf", _BBF_ARGS, xw,
+                    m.tile_col_idx.data_ptr(), m.bit_tiles.data_ptr(),
+                    items.row.data_ptr(), items.begin.data_ptr(),
+                    items.slot.data_ptr(), items.n_items, xw.data_ptr(),
+                    y.data_ptr(), d, t)
+        spmm_bbf.launches += 1
+    return y[: m.n_rows].to(out_dtype)
+
+
 spmm_bbb.launches = 0
 spmm_dense.launches = 0
+spmm_bbf.launches = 0

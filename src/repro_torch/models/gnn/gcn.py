@@ -1,0 +1,64 @@
+"""GCN [Kipf & Welling]: h' = σ(Â h W), Â = D^-1/2 (A + I) D^-1/2.
+
+The normalisation is refactored as Â·h = D^-1/2 · (A + I)·(D^-1/2 h), so
+the inner product is over the binary adjacency and goes through
+``gnn_bit.layers.aggregate`` (the registry's dense mxm row: the
+``spmm_dense`` kernel on ``b2sr_cuda``). With ``use_b2sr=False`` (or a
+batch without a graph) the float segment sum over the edge list is the
+baseline. The order of operations is the reference's (``forward`` and
+``_aggregate`` of ``repro.models.gnn.gcn``): aggregate, then ``@ W + b``,
+so the float results match it.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.gnn import GNNConfig
+from repro_torch.gnn_bit import layers as bit_layers
+from repro_torch.models.gnn.common import GraphBatch, segment_agg
+
+
+class GCN(nn.Module):
+    """``n_layers`` of aggregate, ``@ W + b`` and ReLU (none after the
+    last); layer ``i``'s weight is ``layers[i].weight`` ``[d_out, d_in]``
+    (``nn.Linear``'s layout; the reference keeps ``w`` as ``[d_in,
+    d_out]``, see ``repro_torch.convert.gcn_state_from_reference``)."""
+
+    def __init__(self, cfg: GNNConfig):
+        super().__init__()
+        self.cfg = cfg
+        dims = ([cfg.d_in] + [cfg.d_hidden] * (cfg.n_layers - 1)
+                + [cfg.n_classes])
+        self.layers = nn.ModuleList(nn.Linear(dims[i], dims[i + 1])
+                                    for i in range(cfg.n_layers))
+
+    def _aggregate(self, batch: GraphBatch, h: torch.Tensor) -> torch.Tensor:
+        """Â·h with symmetric normalisation (or plain mean aggregation)."""
+        cfg, n = self.cfg, h.shape[0]
+        deg = batch.degrees
+        if deg is None:
+            deg = torch.zeros(n, dtype=h.dtype, device=h.device).index_add_(
+                0, batch.receivers, batch.edge_mask.to(h.dtype)) + 1.0
+        use_graph = cfg.use_b2sr and batch.graph is not None
+        if cfg.norm == "sym":
+            inv_sqrt = torch.rsqrt(deg.clamp_min(1.0))[:, None]
+            h = h * inv_sqrt
+        if use_graph:
+            agg = bit_layers.aggregate(batch.graph, h) + h
+        else:
+            agg = segment_agg(h[batch.senders], batch.receivers, n,
+                              batch.edge_mask) + h
+        if cfg.norm == "sym":
+            return agg * inv_sqrt
+        return agg / deg.clamp_min(1.0)[:, None]
+
+    def forward(self, batch: GraphBatch) -> torch.Tensor:
+        h = batch.node_feat
+        for i, lin in enumerate(self.layers):
+            h = self._aggregate(batch, h)
+            h = h @ lin.weight.T + lin.bias
+            if i < len(self.layers) - 1:
+                h = torch.relu(h)
+        return h

@@ -135,11 +135,11 @@ def test_registry_covers_reference_packed_rows():
     from repro_torch.core import dispatch as p_dispatch
     backend = {"b2sr": "b2sr", "b2sr_pallas": "b2sr_cuda", "csr": "csr"}
     got = set(p_dispatch.registered_keys(load_all=True))
-    # the (op, operand) columns ported so far; the bitmat mxm rows come
-    # with the GNN slice
+    # every (op, operand) column of the reference is ported
     ported = {("mxv", "dense"), ("mxv", "bitvec"), ("mxv_pull", "bitvec"),
               ("mxm", "graph"), ("mxm_sum", "tri"), ("mxm", "dense"),
-              ("mxm", "frontier"), ("mxm_pull", "frontier")}
+              ("mxm", "frontier"), ("mxm_pull", "frontier"),
+              ("mxm", "bitmat")}
     assert {k[:2] for k in got} == ported
     want = {k[:3] + (backend[k[3]],) + k[4:]
             for k in r_dispatch.registered_keys(load_all=True)

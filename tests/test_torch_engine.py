@@ -288,8 +288,8 @@ def test_batcher_validates_at_submit():
         b.bfs(g, N)
     with pytest.raises(ValueError, match="unknown query kind"):
         b.submit(g, "tc", 0)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        b.gnn_infer(g, 0, model="gcn")
+    with pytest.raises(ValueError, match=f"{N} nodes"):
+        b.gnn_infer(g, N, model="gcn")
     assert b.pending() == 0
 
 

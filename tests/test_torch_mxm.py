@@ -14,7 +14,6 @@ here.
 from __future__ import annotations
 
 import functools
-import types
 
 import numpy as np
 import pytest
@@ -35,7 +34,7 @@ from repro_torch.core import csr as csr_mod  # noqa: E402
 from repro_torch.core import dispatch  # noqa: E402
 from repro_torch.core.descriptor import Descriptor  # noqa: E402
 from repro_torch.core.graphblas import GraphMatrix  # noqa: E402
-from repro_torch.core.operands import BitVector  # noqa: E402
+from repro_torch.core.operands import BitMatrix, BitVector  # noqa: E402
 from repro_torch.core.semiring import ARITHMETIC, SEMIRINGS  # noqa: E402
 from repro_torch.core.words import from_numpy_u32, to_numpy_u32  # noqa: E402
 from repro_torch.data import graphs as PG  # noqa: E402
@@ -264,11 +263,13 @@ def test_mxm_rejects_what_the_reference_rejects():
     g = port_graph("a", 8)
     with pytest.raises(TypeError, match="BitVector"):
         g.mxm(BitVector.pack(torch.ones(N), 8, N))
-    # a packed-activation operand (words + feature width), as BitMatrix
-    bitmat = types.SimpleNamespace(words=torch.zeros(6, 3, dtype=torch.int32),
-                                   d=3, n=N, tile_dim=8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        g.mxm(bitmat)
+    # a BitMatrix operand: the arithmetic semiring only, and the matrix's
+    # tile dim, as in the reference
+    bitmat = BitMatrix.pack(torch.ones(N, 3), 8)
+    with pytest.raises(NotImplementedError, match="arithmetic"):
+        g.mxm(bitmat, SEMIRINGS["boolean"])
+    with pytest.raises(ValueError, match="tile_dim"):
+        g.mxm(BitMatrix.pack(torch.ones(N, 3), 4))
     with pytest.raises(NotImplementedError, match="boolean"):
         g.mxm(g, SEMIRINGS["min_plus"])
     with pytest.raises(TypeError, match="structural"):
