@@ -22,7 +22,10 @@ exits non-zero.
      masks with complement on and off); ``bmv_bbf`` bit for bit (the same
      frontiers); ``bmv_bff`` bit for bit in modes min_plus and max_times
      and, in mode sum, within ``|y - y_plain| <= 1e-5 * (A·|a·x|)``
-     elementwise, each with ``a_value`` 1.0 and 0.0.
+     elementwise and equal bit for bit on a second launch, each with
+     ``a_value`` 1.0 and 0.0. ``bmv_bbf`` and ``bmv_bff`` run with their
+     default work items and with items of 3 tiles (every row of more
+     than 3 tiles cut and merged).
   2. bfs: Graph500 R-MAT scale 21, edgefactor 16 (n = 2,097,152;
      A/B/C = 0.57/0.19/0.19; symmetrised, no self-loops), tile dim 32.
      ``direction`` push/pull/auto from 4 sources on ``b2sr_cuda``, then on
@@ -119,8 +122,12 @@ exits non-zero.
      beside its plain version, the ``csr`` row, one cuSPARSE SpMV call
      (``torch.mv`` on the float CSR) where that computes the same
      function, and the bound (bytes over 3.35 TB/s or operations over
-     67 TFLOP/s); the graph's B2SR and CSR bytes. Phases 7-8 time their
-     own kernels the same way.
+     67 TFLOP/s); the graph's B2SR and CSR bytes. ``bmv_bff`` and
+     ``bmv_bbf`` run with the work items the registry keeps, and the
+     line gives the cut's one-off time apart, each kernel on the hub
+     tile-rows' items alone, and ``bmv_bff`` (sum) at tile dims 16 and 8
+     on the same graph (time, bytes, bound, error against the plain
+     version). Phases 7-8 time their own kernels the same way.
  18. profile: one run per algorithm and BFS direction, triangle counting,
      k-hop, msbfs (auto), batched PPR and ``gnn_infer`` (bit and float)
      under ``torch.profiler``: device time by kernel and the card's idle
@@ -149,6 +156,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import subprocess
@@ -303,26 +311,31 @@ def value_err(got, want):
     return float(d.max()) if d.numel() else 0.0
 
 
-def check_bff(m, x3, mode, a_value):
+def check_bff(m, x3, mode, a_value, items=None):
     """bmv_bff against its plain version: (error, error over the bound, ok).
 
     min_plus and max_times must be equal entry for entry; sum must stay
-    within SUM_TOL · (A·|a·x|) elementwise (the plain sum is float64).
+    within SUM_TOL · (A·|a·x|) elementwise (the plain sum is float64) and
+    give the same bits on a second launch.
     """
     import torch
     from repro_torch.kernels.bmv import bmv, ref
     args, t = b2sr_args(m), m.tile_dim
-    got = bmv.bmv_bff(*args, x3, t=t, mode=mode, a_value=a_value)
+    got = bmv.bmv_bff(*args, x3, t=t, mode=mode, a_value=a_value,
+                      items=items)
     want = ref.bmv_bff(*args, x3, t=t, mode=mode, a_value=a_value)
     sync()
     err = value_err(got, want)
     if mode != "sum":
         return err, None, err == 0
+    again = bmv.bmv_bff(*args, x3, t=t, mode=mode, a_value=a_value,
+                        items=items)
     bound = SUM_TOL * ref.bmv_bff(*args, x3.abs(), t=t, mode="sum",
                                   a_value=abs(a_value))
     excess = (got.double() - want.double()).abs() - bound.double()
     ratio = float(((got - want).abs() / bound.clamp_min(1e-30)).max())
-    return err, ratio, bool((excess <= 0).all())
+    same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+    return err, ratio, bool((excess <= 0).all()) and same
 
 
 def bff_inputs(n_tile_cols, t, rng, mode):
@@ -344,6 +357,7 @@ def phase_kernels(full_g, rng):
     from repro_torch.core.words import to_uint
     from repro_torch.data import graphs as G
     from repro_torch.kernels.bmv import bmv, ref
+    from repro_torch.kernels.items import work_items
 
     small = {"dot": (G.dot_graph(3000, 0.004, seed=SEED), 3000),
              "rmat": (G.rmat_graph(4096, 16, seed=SEED), 4096),
@@ -356,6 +370,9 @@ def phase_kernels(full_g, rng):
     worst_sum_ratio = 0.0
     for name, g in cases:
         m = g.b2sr
+        # bmv_bbf and bmv_bff also with items of 3 tiles: every row of
+        # more than 3 tiles is cut and merged
+        cuts = (None, work_items(m, 3))
         for dens in DENSITIES:
             x = g.pack(torch.as_tensor(rng.random(g.n_cols) < dens,
                                        device=DEVICE))
@@ -372,24 +389,28 @@ def phase_kernels(full_g, rng):
                     n_checks += 1
                     if err:
                         bad.append([k, name, m.tile_dim, dens, comp])
-            got = bmv.bmv_bbf(*b2sr_args(m), x, t=m.tile_dim)
             want = ref.bmv_bbf(*b2sr_args(m), x, t=m.tile_dim)
-            sync()
-            err = int((got - want).abs().max())
-            max_err["bmv_bbf"] = max(max_err["bmv_bbf"], err)
-            n_checks += 1
-            if err:
-                bad.append(["bmv_bbf", name, m.tile_dim, dens])
+            for items in cuts:
+                got = bmv.bmv_bbf(*b2sr_args(m), x, t=m.tile_dim,
+                                  items=items)
+                sync()
+                err = int((got - want).abs().max())
+                max_err["bmv_bbf"] = max(max_err["bmv_bbf"], err)
+                n_checks += 1
+                if err:
+                    bad.append(["bmv_bbf", name, m.tile_dim, dens,
+                                items is None])
         for mode in ref.BFF_MODES:
             x3 = bff_inputs(m.n_tile_cols, m.tile_dim, rng, mode)
-            for a_value in (1.0, 0.0):
-                err, ratio, ok = check_bff(m, x3, mode, a_value)
+            for a_value, items in itertools.product((1.0, 0.0), cuts):
+                err, ratio, ok = check_bff(m, x3, mode, a_value, items)
                 max_err["bmv_bff"] = max(max_err["bmv_bff"], err)
                 if ratio is not None:
                     worst_sum_ratio = max(worst_sum_ratio, ratio)
                 n_checks += 1
                 if not ok:
-                    bad.append(["bmv_bff", name, m.tile_dim, mode, a_value])
+                    bad.append(["bmv_bff", name, m.tile_dim, mode, a_value,
+                                items is None])
     n_checks += check_row_products(cases[:-1], rng, max_err, bad)
     spmm_checks, dense_ratio = check_spmm(cases, max_err, bad)
     n_checks += spmm_checks
@@ -1121,9 +1142,11 @@ def bfs_timing(gt, levels, n_iterations, spmv):
     from repro_torch.core.descriptor import Descriptor
     from repro_torch.core.operands import BitVector
     from repro_torch.kernels.bmv import bmv, ref
+    from repro_torch.kernels.items import items_for
 
     m = gt.b2sr
     gc = gt.with_backend("csr")
+    items = items_for(gt, bmv.BBF_ITEM_WORK)
     rows = {k: [] for k in ("bmv_bbb_push", "bmv_bbb_pull", "bmv_bbf")}
     csr_row_ms = []
     for it, xf in enumerate(frontiers(gt, levels, n_iterations)):
@@ -1143,7 +1166,8 @@ def bfs_timing(gt, levels, n_iterations, spmv):
                         lambda k=k, args=args, kw=kw:
                         getattr(ref, k)(*args, **kw))
         calls["bmv_bbf"] = (
-            lambda: bmv.bmv_bbf(*b2sr_args(m), front, t=m.tile_dim),
+            lambda: bmv.bmv_bbf(*b2sr_args(m), front, t=m.tile_dim,
+                                items=items),
             lambda: ref.bmv_bbf(*b2sr_args(m), front, t=m.tile_dim))
         for k, (kern, plain) in calls.items():
             rows[k].append({"it": it, "ms": event_ms(kern),
@@ -1154,45 +1178,129 @@ def bfs_timing(gt, levels, n_iterations, spmv):
     return rows, statistics.fmean(csr_row_ms)
 
 
+def cut_ms(m, budget, by_bits=False) -> float:
+    """Wall time of cutting ``m`` into work items (median of 3): the
+    one-off cost a registry row pays on its first call."""
+    from repro_torch.kernels.items import work_items
+    return 1e3 * statistics.median(
+        sync_time(lambda: work_items(m, budget, by_bits))[1]
+        for _ in range(3))
+
+
+def row_items(items, r: int, lo: int):
+    """The work items of tile-row ``r`` (whose tiles start at ``lo``)
+    alone, as the items of the one-row matrix of its tiles."""
+    import torch
+    from repro_torch.kernels.items import WorkItems
+    sel = torch.nonzero(items.row == r).flatten()
+    i0, n = int(sel[0]), int(sel.numel())
+    dev, i32 = items.row.device, torch.int32
+    cut = int(n > 1)
+    return WorkItems(
+        row=torch.zeros(n, dtype=i32, device=dev),
+        begin=items.begin[i0:i0 + n + 1] - lo,
+        slot=(torch.arange(n, dtype=i32, device=dev) if cut
+              else torch.full((1,), -1, dtype=i32, device=dev)),
+        cut_row=torch.zeros(cut, dtype=i32, device=dev),
+        cut_first=torch.zeros(cut, dtype=i32, device=dev),
+        cut_count=torch.full((cut,), n, dtype=i32, device=dev),
+        n_slots=n if cut else 0)
+
+
 def heavy_rows(gt, x):
-    """bmv_bff (sum mode) on one tile-row alone, for the row with the most
-    tiles and the row with the most set bits: the floor that one warp per
-    tile-row puts under every launch."""
+    """bmv_bff (sum mode) and bmv_bbf (every x word non-zero) on one
+    tile-row alone, its work items as the registry keeps them, for the row
+    with the most tiles and the row with the most set bits: what a hub row
+    costs now that its items spread over many warps."""
     import torch
     from repro_torch.kernels.bmv import bmv
+    from repro_torch.kernels.items import items_for
 
     m = gt.b2sr
     t = m.tile_dim
     ptr = m.tile_row_ptr
-    n_tc = m.n_tile_cols
-    x3 = torch.cat([x, x.new_zeros(n_tc * t - x.numel())]).view(n_tc, t)
+    x3 = pad_x3(x, t, 0.0)
+    xw = torch.full((m.n_tile_cols,), -1, dtype=torch.int32,
+                    device=x.device)
+    bff_items = items_for(gt, bmv.BFF_ITEM_WORK, by_bits=True)
+    bbf_items = items_for(gt, bmv.BBF_ITEM_WORK)
     deg = gt.degrees()
     bits = torch.cat([deg, deg.new_zeros(m.n_tile_rows * t - deg.numel())])
     rows = {"most_tiles": int((ptr[1:] - ptr[:-1]).argmax()),
             "most_set_bits": int(bits.view(-1, t).sum(1).argmax())}
     out = {}
     for key, r in rows.items():
-        one = ptr[r:r + 2]
+        lo, hi = int(ptr[r]), int(ptr[r + 1])
+        one = (ptr.new_tensor([0, hi - lo]), m.tile_col_idx[lo:hi],
+               m.bit_tiles[lo:hi])
+        fi, ci = row_items(bff_items, r, lo), row_items(bbf_items, r, lo)
         out[key] = {
-            "row": r, "tiles": int(one[1] - one[0]),
+            "row": r, "tiles": hi - lo,
             "set_bits": int(bits[r * t:(r + 1) * t].sum()),
-            "ms": event_ms(lambda: bmv.bmv_bff(
-                one, m.tile_col_idx, m.bit_tiles, x3, t=t, mode="sum"))}
+            "items": fi.n_items,
+            "ms": event_ms(lambda: bmv.bmv_bff(*one, x3, t=t, mode="sum",
+                                               items=fi)),
+            "bbf_items": ci.n_items,
+            "bbf_ms": event_ms(lambda: bmv.bmv_bbf(*one, xw, t=t,
+                                                   items=ci))}
     return out
 
 
-def bff_timing(g, sources, spmv):
+def pad_x3(x, t, ident):
+    """x padded with the identity to whole column tiles: [C, t]."""
+    import torch
+    n_tc = -(-x.numel() // t)
+    return torch.cat([x, x.new_full((n_tc * t - x.numel(),), ident)]
+                     ).view(n_tc, t)
+
+
+def bff_tile_dims(coo, x, spmv_ms):
+    """bmv_bff (sum mode) on the first PageRank input at t = 16 and 8 on
+    the same graph (its transpose, as ``bff_timing`` reads it): time per
+    launch with the items kept for it, the cut's one-off time, the B2SR's
+    bytes and the bound, and the error against the plain version."""
+    from repro_torch.core.graphblas import GraphMatrix
+    from repro_torch.kernels.bmv import bmv
+    from repro_torch.kernels.items import items_for
+
+    rows, cols = coo
+    n = x.numel()
+    out = {}
+    for t in (16, 8):
+        g = GraphMatrix.from_coo(cols, rows, n, n, t, with_transpose=False,
+                                 backend="b2sr_cuda", device=DEVICE)
+        m = g.b2sr
+        x3 = pad_x3(x, t, 0.0)
+        items = items_for(g, bmv.BFF_ITEM_WORK, by_bits=True)
+        err, ratio, ok = check_bff(m, x3, "sum", 1.0, items)
+        if not ok:
+            fail("timing", f"bmv_bff sum at t = {t}: error {err} "
+                           f"({ratio} of the bound)")
+        out[t] = {"ms": event_ms(lambda: bmv.bmv_bff(
+            *b2sr_args(m), x3, t=t, mode="sum", items=items)),
+            "cut_ms": cut_ms(m, bmv.BFF_ITEM_WORK, by_bits=True),
+            "n_tiles": m.n_tiles, "items": items.n_items,
+            "b2sr_bytes": b2sr_bytes(m), "err_over_bound": ratio,
+            "library_ms": spmv_ms, **bound_row(*bff_bytes_ops(m, g.nnz))}
+        del g, m, items
+    return out
+
+
+def bff_timing(g, sources, spmv, coo):
     """bmv_bff per launch on each iteration's input of one PageRank
-    (sum), one SSSP (min_plus) and one CC (min_plus, a_value 0); the
-    plain version on the first input of each."""
+    (sum), one SSSP (min_plus) and one CC (min_plus, a_value 0), with the
+    work items the registry keeps; the plain version on the first input of
+    each; the cut's one-off time; the hub rows alone; sum mode at t = 16
+    and 8."""
     import torch
     from repro_torch.algorithms import connected_components, pagerank, sssp
     from repro_torch.kernels.bmv import bmv, ref
+    from repro_torch.kernels.items import items_for
 
     gt = g.transposed()
     m = gt.b2sr
     t = m.tile_dim
-    n_tc = m.n_tile_cols
+    items = items_for(gt, bmv.BFF_ITEM_WORK, by_bits=True)
     safe_deg = torch.where(g.degrees() == 0, 1.0, g.degrees())
     pr_n = pagerank(g).n_iterations
     sssp_n = sssp(g, sources[0]).n_iterations
@@ -1208,14 +1316,18 @@ def bff_timing(g, sources, spmv):
             for k in range(cc_n)]),
     }
     bound = bound_row(*bff_bytes_ops(m, g.nnz))
-    out = {"heavy_rows": heavy_rows(gt, inputs["pagerank"][2][0])}
+    first_pr = inputs["pagerank"][2][0]
+    out = {"heavy_rows": heavy_rows(gt, first_pr),
+           "items": items.n_items, "cut_rows": int(items.cut_row.numel()),
+           "cut_ms": {"bmv_bff": cut_ms(m, bmv.BFF_ITEM_WORK, by_bits=True),
+                      "bmv_bbf": cut_ms(m, bmv.BBF_ITEM_WORK)}}
     for name, (mode, a_value, xs) in inputs.items():
         ident = float("inf") if mode == "min_plus" else 0.0
-        x3s = [torch.cat([x, x.new_full((n_tc * t - x.numel(),), ident)]
-                         ).view(n_tc, t) for x in xs]
+        x3s = [pad_x3(x, t, ident) for x in xs]
         args = (*b2sr_args(m),)
         ms = [event_ms(lambda x3=x3: bmv.bmv_bff(*args, x3, t=t, mode=mode,
-                                                 a_value=a_value))
+                                                 a_value=a_value,
+                                                 items=items))
               for x3 in x3s]
         out[name] = {
             "mode": mode, "a_value": a_value, "ms": ms,
@@ -1227,17 +1339,19 @@ def bff_timing(g, sources, spmv):
                                              for x in xs)
                            if mode == "sum" else None),
             **bound}
+    out["tile_dims"] = bff_tile_dims(coo, first_pr,
+                                     out["pagerank"]["library_ms"])
     return out
 
 
-def phase_timing(g, bfs_first, sources, launches):
+def phase_timing(g, bfs_first, sources, launches, coo):
     """Per-launch times on the main path's inputs; the kernel table."""
     gt = g.transposed()
     m = gt.b2sr
     spmv = csr_spmv(gt.csr)
     bfs_rows, csr_ms = bfs_timing(gt, bfs_first.levels,
                                   bfs_first.n_iterations, spmv)
-    bff = bff_timing(g, sources, spmv)
+    bff = bff_timing(g, sources, spmv, coo)
     b2sr_bytes = 4 * (m.tile_row_ptr.numel() + m.n_tiles
                       + m.n_tiles * m.tile_dim)
     csr_bytes = 4 * (gt.csr.row_ptr.numel() + 2 * g.nnz)
@@ -1267,8 +1381,8 @@ def phase_timing(g, bfs_first, sources, launches):
         "name": "bmv_bff", "ms": pr["median_ms"], "plain_ms": pr["plain_ms"],
         "bound_ms": pr["bound_ms"], "bound_by": pr["bound_by"],
         "library_ms": pr["library_ms"],
-        "ms_by_input": {k: v["median_ms"] for k, v in bff.items()
-                        if k != "heavy_rows"},
+        "ms_by_input": {k: bff[k]["median_ms"]
+                        for k in ("pagerank", "sssp", "cc")},
         "inputs": "PageRank iterations (sum mode), median"})
     for row in table:
         row["launches"] = launches[row["name"]]
@@ -2030,7 +2144,8 @@ def main() -> int:
     for row in gnn_rows:
         row["launches"] = ls[row["name"]]
 
-    table, csr_ms = phase_timing(g, first, sources, launches)
+    table, csr_ms = phase_timing(g, first, sources, launches,
+                                 (rows, cols))
     for row in table:
         row["csr_row_ms"] = csr_ms
     table += [tc_row, spgemm_row, *spmm_rows, *gnn_rows, *pack_rows_]

@@ -10,6 +10,9 @@ a :class:`PlanKey` built from
   - the graph's **structure fingerprint** (``GraphMatrix.fingerprint``:
     two wrappers around the same adjacency share plans),
   - the **kernel** name (msbfs / mskhop / ppr),
+  - the graph's **device** (``"cpu"``, ``"cuda:0"``): a plan closes
+    over the graph's tensors, so the same structure on two devices
+    needs two plans,
   - **backend**, **tile_dim** and the **bucket layout** (per-bucket
     (rows, width) pairs of the ``b2sr`` word schemes; the ``b2sr_cuda``
     and ``csr`` rows read no bucketed slabs, so theirs is None),
@@ -37,6 +40,7 @@ from repro_torch.core.graphblas import GraphMatrix
 class PlanKey:
     graph_fp: str
     kernel: str
+    device: str                 # the graph's device, e.g. "cpu", "cuda:0"
     backend: str
     tile_dim: int
     bucket_layout: Optional[Tuple[Tuple[int, int], ...]]
@@ -81,7 +85,7 @@ def plan_key(g: GraphMatrix, kernel: str, batch_width: int,
         bucket_layout = tuple((int(c.shape[0]), int(c.shape[1]))
                               for c in b.col_idx)
     return PlanKey(graph_fp=g.fingerprint(), kernel=kernel,
-                   backend=g.backend, tile_dim=g.tile_dim,
+                   device=str(g.device), backend=g.backend, tile_dim=g.tile_dim,
                    bucket_layout=bucket_layout, batch_width=batch_width,
                    desc=desc)
 

@@ -10,8 +10,10 @@
 // All four walk the B2SR CSR-over-tiles arrays directly: tile_row_ptr
 // int32[R+1], tile_col_idx int32[nT], bit_tiles uint32[nT, t]. The TPU
 // kernels needed an ELL slab per static shape (and one launch per
-// bucket); a warp here loops over its own row's tiles instead, so there
-// is no padding and one launch per step.
+// bucket); a warp here loops over tiles instead (push and pull: its own
+// row's; bmv_bff and bmv_bbf: a work item's, a run of one row's tiles),
+// so there is no padding and one launch per step (bmv_bff: two when a row
+// is cut).
 //
 // --- bmv_bbb_push / bmv_bbb_pull ------------------------------------------
 //
@@ -169,36 +171,69 @@ int launch(Kernel k, const void* row_ptr, const void* col_idx,
 // unpacked 0/1 tiles with x on the MXU; at about 2 set bits per
 // 1,024-bit tile a tensor core would multiply zeros.)
 //
-// Layout: one warp per tile-row, lanes striding over the row's tiles as
-// in push. A lane keeps t accumulators, one per bit-row, loads the tile's
-// t words (16-byte vector loads) and, for each set bit (r, c), gathers
-// x3[col][c] and folds a (x) x into accumulator r: work per tile is its
-// set bits, not t * t. A butterfly reduce-scatter (t - 1 + log2(32 / t)
-// shuffles) then leaves bit-row r's total in lane r, which stores it. The
-// order of the sum is fixed (tiles in lane order, then the butterfly), so
-// the result is the same from run to run; it differs from a sequential
-// sum by float32 rounding only.
+// Work items. The wrapper cuts every tile-row into work items (runs of
+// its tiles of at most 2,048 set bits plus one per tile; see
+// kernels/items.py) and a warp takes one item, so a hub tile-row spreads
+// over many warps. (One warp per tile-row put R-MAT scale 21's tile-row 0,
+// 40,500 tiles and 552,282 set bits, on one warp: about 13 of the
+// launch's 16.8 ms.) An item that is its whole row stores y itself; the
+// items of a cut row write their t partials to a scratch slot each, and
+// a second launch folds a row's slots in item order. No float atomics:
+// the sum mode is the same, bit for bit, from run to run, and min and max
+// are exact in any order.
+//
+// Layout inside an item: the warp reads its tiles cooperatively, lane
+// (g, r) = (lane / t, lane % t) word r of tile g of each step, so a step
+// reads 32 / t whole tiles as one coalesced 128-byte load. Lane r folds
+// a (x) x3[col][c] for each set bit c of its word straight into bit-row
+// r's accumulator; the 32 / t lane groups of a bit-row are folded by a
+// shuffle at the end. kUnroll steps are loaded at once, and the next
+// kUnroll steps' column indices and words are loaded before the current
+// ones' bits are walked, so a warp keeps up to 2 * kUnroll tile loads in
+// flight; the gathers of x3 (8.4 MB at scale 21, held in the 50 MB L2)
+// for the kUnroll words are issued together too. A lane keeps one
+// accumulator per unrolled step and folds them in a fixed order at the
+// end, so the sum order is fixed by the data and the cut alone.
 //
 // Bound: device-memory bytes. Each tile is read whole (x is dense, no
 // tile can be skipped): at R-MAT scale 21 with t = 32, 4.23 GB of tiles,
 // 132 MB of column indices and 8.4 MB each of x and y, about 1.31 ms at
 // 3.35 TB/s, against about 2 floating-point operations per set bit
-// (127 M here, 100 times below the byte line). A hub tile-row is walked
-// by one warp, so the longest row (40,500 tiles) sets a floor on the
-// launch, as it does for push.
+// (127 M here, 100 times below the byte line).
 //
 // --- bmv_bbf: count mxv, y[i*t + r] = sum_k popc(tile_k[r] & x[col_k]) ---
 //
-// Inputs: the packed x uint32[C]; output int32[R * t]. Same layout as
-// bmv_bff with integer accumulators: a lane skips a tile whose x word is
-// zero (as push does) and otherwise adds popc(word_r & xw) to
-// accumulator r. Integer sums are exact in any order. Bound: bytes, by
-// push's rule (the tiles whose x word is non-zero, plus every column
-// index); at full x density about 4.36 GB, 1.30 ms at scale 21.
+// Inputs: the packed x uint32[C]; output int32[R * t]. The same work
+// items (cut by tiles, at most 256 each) and the same cooperative tile
+// read, with a warp-uniform skip: the warp loads 32 column indices,
+// gathers their 32 x words and takes a ballot of the non-zero ones, then
+// walks only those tiles, 32 / t at a time (8 steps' loads issued
+// together); lane r adds popc(word_r & xw). A sparse frontier thus skips
+// almost every tile for one gather per 32 tiles. The column indices and
+// x words of 4 such batches are loaded together, so a warp waits for
+// them once per 128 tiles. Integer sums are exact in any order, so the
+// items of a cut row merge with atomicAdd into y (zeroed by the
+// wrapper). Bound: bytes, by push's rule (the tiles whose x word is
+// non-zero, plus every column index); at full x density about 4.36 GB,
+// 1.30 ms at scale 21.
 
 namespace {
 
 enum Mode { kSum = 0, kMinPlus = 1, kMaxTimes = 2 };
+
+// Steps (of 32 / t tiles each) a bmv_bff warp loads at once. At R-MAT
+// scale 21, t = 32 (sum mode; tools/bmv_variants.py on an H100): 4 steps
+// take 40 registers and 2.03-2.07 ms, 8 steps 64 registers and
+// 2.38-2.42 ms, 16 steps 119 and 3.71-3.75 ms: more warps in flight beat
+// deeper unrolling.
+constexpr int kUnroll = 4;
+// Batches of 32 tiles whose column indices and x words a bmv_bbf warp
+// loads at once, live tiles it reads at once, and the blocks per SM it
+// asks the compiler for (a cap of 40 registers; uncapped it takes 48 and
+// ran 0.548-0.580 ms over a BFS's iterations against 0.508-0.526).
+constexpr int kCountBatches = 4;
+constexpr int kCountUnroll = 8;
+constexpr int kCountBlocksPerSM = 6;
 
 // (x) and (+) of each mode. The products are rounded on their own (no
 // fused multiply-add), as the plain version rounds them; min and max
@@ -229,111 +264,203 @@ template <> struct Semi<kMaxTimes> {
   }
 };
 
-struct IntPlus {
-  static __device__ __forceinline__ int add(int p, int q) { return p + q; }
-};
-
-// Reduce t per-lane accumulators across the warp: afterwards lane l holds
-// the warp's total of accumulator l % T. A reduce-scatter halves the live
-// values at each step (T - 1 shuffles), then the groups of T lanes fold.
-template <int T, typename Op, typename V>
-__device__ __forceinline__ V warp_reduce_scatter(V (&acc)[T], int lane) {
+// Column index and lane word of the tiles of kUnroll steps from tile kb:
+// step u holds tile kb + u * G + g (G = 32 / T tiles a step, g the lane's
+// group); past the item's end a lane gets word 0.
+template <int T>
+__device__ __forceinline__ void load_steps(const int32_t* __restrict__ col_idx,
+                                           const uint32_t* __restrict__ tiles,
+                                           int kb, int k1, int g, int r,
+                                           int (&col)[kUnroll],
+                                           uint32_t (&w)[kUnroll]) {
+  constexpr int G = 32 / T;
 #pragma unroll
-  for (int w = T / 2; w >= 1; w /= 2) {
-    const bool upper = (lane & w) != 0;
-#pragma unroll
-    for (int i = 0; i < w; ++i) {
-      const V send = upper ? acc[i] : acc[i + w];
-      const V keep = upper ? acc[i + w] : acc[i];
-      acc[i] = Op::add(keep, __shfl_xor_sync(kFull, send, w));
+  for (int u = 0; u < kUnroll; ++u) {
+    const int k = kb + u * G + g;
+    col[u] = 0;
+    w[u] = 0u;
+    if (k < k1) {
+      col[u] = __ldg(col_idx + k);
+      w[u] = __ldg(tiles + static_cast<int64_t>(k) * T + r);
     }
-  }
-#pragma unroll
-  for (int o = T; o < 32; o *= 2) {
-    acc[0] = Op::add(acc[0], __shfl_xor_sync(kFull, acc[0], o));
-  }
-  return acc[0];
-}
-
-// Fold a (x) x[c] into acc for every set bit c of word w.
-template <int M>
-__device__ __forceinline__ void fold_bits(float& acc, uint32_t w,
-                                          const float* __restrict__ xt,
-                                          float a) {
-  while (w) {
-    const int c = __ffs(w) - 1;
-    w &= w - 1;
-    acc = Semi<M>::add(acc, Semi<M>::mul(a, __ldg(xt + c)));
   }
 }
 
 template <int T, int M>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-bmv_bff_kernel(const int32_t* __restrict__ row_ptr,
-               const int32_t* __restrict__ col_idx,
+bmv_bff_kernel(const int32_t* __restrict__ col_idx,
                const uint32_t* __restrict__ tiles,
-               const float* __restrict__ x3, float* __restrict__ out,
-               int n_rows, float a, float ident) {
+               const int32_t* __restrict__ item_row,
+               const int32_t* __restrict__ item_begin,
+               const int32_t* __restrict__ item_slot,
+               const float* __restrict__ x3, float* __restrict__ scratch,
+               float* __restrict__ out, int n_items, float a, float ident) {
+  constexpr int G = 32 / T;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_rows) return;  // uniform across the warp
-  float acc[T];
+  const int g = lane / T;
+  const int r = lane - g * T;
+  const int item = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (item >= n_items) return;  // uniform across the warp
+  const int k0 = item_begin[item];
+  const int k1 = item_begin[item + 1];
+  float acc[kUnroll];
 #pragma unroll
-  for (int r = 0; r < T; ++r) acc[r] = ident;
-  const int end = row_ptr[row + 1];
-  for (int k = row_ptr[row] + lane; k < end; k += 32) {
-    const float* xt = x3 + static_cast<size_t>(col_idx[k]) * T;
-    const uint4* v = reinterpret_cast<const uint4*>(
-        tiles + static_cast<size_t>(k) * T);
+  for (int u = 0; u < kUnroll; ++u) acc[u] = ident;
+  int col_next[kUnroll];
+  uint32_t w_next[kUnroll];
+  load_steps<T>(col_idx, tiles, k0, k1, g, r, col_next, w_next);
+  for (int kb = k0; kb < k1; kb += kUnroll * G) {
+    int col[kUnroll];
+    uint32_t w[kUnroll];
 #pragma unroll
-    for (int q = 0; q < T / 4; ++q) {
-      const uint4 w = __ldg(v + q);
-      fold_bits<M>(acc[4 * q], w.x, xt, a);
-      fold_bits<M>(acc[4 * q + 1], w.y, xt, a);
-      fold_bits<M>(acc[4 * q + 2], w.z, xt, a);
-      fold_bits<M>(acc[4 * q + 3], w.w, xt, a);
+    for (int u = 0; u < kUnroll; ++u) {
+      col[u] = col_next[u];
+      w[u] = w_next[u];
+    }
+    if (kb + kUnroll * G < k1)  // uniform: prefetch the next steps
+      load_steps<T>(col_idx, tiles, kb + kUnroll * G, k1, g, r, col_next,
+                    w_next);
+    // one set bit of each word per round, the gathers issued together
+    while (true) {
+      uint32_t any = 0;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) any |= w[u];
+      if (!any) break;
+      float v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        v[u] = 0.0f;
+        if (w[u]) {
+          const int c = __ffs(w[u]) - 1;
+          v[u] = __ldg(x3 + static_cast<int64_t>(col[u]) * T + c);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (w[u]) {
+          acc[u] = Semi<M>::add(acc[u], Semi<M>::mul(a, v[u]));
+          w[u] &= w[u] - 1;
+        }
+      }
     }
   }
-  const float y = warp_reduce_scatter<T, Semi<M>>(acc, lane);
-  if (lane < T) out[static_cast<size_t>(row) * T + lane] = y;
+  float y = acc[0];
+#pragma unroll
+  for (int u = 1; u < kUnroll; ++u) y = Semi<M>::add(y, acc[u]);
+#pragma unroll
+  for (int o = T; o < 32; o *= 2)
+    y = Semi<M>::add(y, __shfl_xor_sync(kFull, y, o));
+  if (g == 0) {
+    const int slot = item_slot[item];
+    if (slot < 0) out[static_cast<int64_t>(item_row[item]) * T + r] = y;
+    else scratch[static_cast<int64_t>(slot) * T + r] = y;
+  }
+}
+
+// y of a cut tile-row: its items' partials folded in item order, in four
+// interleaved chains joined in a fixed order. One thread per (cut row, r).
+template <int T, int M>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+bmv_bff_merge_kernel(const int32_t* __restrict__ cut_row,
+                     const int32_t* __restrict__ cut_first,
+                     const int32_t* __restrict__ cut_count,
+                     const float* __restrict__ scratch,
+                     float* __restrict__ out, int n_cells) {
+  const int i = blockIdx.x * 32 * kWarpsPerBlock + threadIdx.x;
+  if (i >= n_cells) return;
+  const int c = i / T;
+  const int r = i - c * T;
+  const float* p = scratch + static_cast<int64_t>(cut_first[c]) * T + r;
+  const int n = cut_count[c];  // >= 2
+  float s[4];
+  int j = 0;
+  for (; j < 4 && j < n; ++j) s[j] = p[static_cast<int64_t>(j) * T];
+  for (int q = j; q < 4; ++q) s[q] = s[0];
+  for (; j + 4 <= n; j += 4) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      s[q] = Semi<M>::add(s[q], p[static_cast<int64_t>(j + q) * T]);
+  }
+  for (int q = 0; j < n; ++j, ++q)
+    s[q] = Semi<M>::add(s[q], p[static_cast<int64_t>(j) * T]);
+  // chains that got no partial of their own hold s[0] and are not folded
+  float y = Semi<M>::add(s[0], s[1]);
+  if (n > 2) y = Semi<M>::add(y, s[2]);
+  if (n > 3) y = Semi<M>::add(y, s[3]);
+  out[static_cast<int64_t>(cut_row[c]) * T + r] = y;
 }
 
 template <int T>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-bmv_bbf_kernel(const int32_t* __restrict__ row_ptr,
-               const int32_t* __restrict__ col_idx,
+__global__ void __launch_bounds__(32 * kWarpsPerBlock, kCountBlocksPerSM)
+bmv_bbf_kernel(const int32_t* __restrict__ col_idx,
                const uint32_t* __restrict__ tiles,
+               const int32_t* __restrict__ item_row,
+               const int32_t* __restrict__ item_begin,
+               const int32_t* __restrict__ item_slot,
                const uint32_t* __restrict__ x, int32_t* __restrict__ out,
-               int n_rows) {
+               int n_items) {
+  constexpr int G = 32 / T;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_rows) return;  // uniform across the warp
-  int acc[T];
+  const int g = lane / T;
+  const int r = lane - g * T;
+  const int item = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (item >= n_items) return;  // uniform across the warp
+  const int k0 = item_begin[item];
+  const int k1 = item_begin[item + 1];
+  int acc = 0;
+  for (int kb0 = k0; kb0 < k1; kb0 += 32 * kCountBatches) {
+    // the column indices, then the x words, of kCountBatches batches of
+    // 32 tiles, each issued together
+    int col[kCountBatches];
+    uint32_t xw[kCountBatches];
 #pragma unroll
-  for (int r = 0; r < T; ++r) acc[r] = 0;
-  const int end = row_ptr[row + 1];
-  for (int k = row_ptr[row] + lane; k < end; k += 32) {
-    const uint32_t xw = __ldg(x + col_idx[k]);
-    if (!xw) continue;
-    const uint4* v = reinterpret_cast<const uint4*>(
-        tiles + static_cast<size_t>(k) * T);
+    for (int b = 0; b < kCountBatches; ++b) {
+      const int k = kb0 + 32 * b + lane;
+      col[b] = k < k1 ? __ldg(col_idx + k) : -1;
+    }
 #pragma unroll
-    for (int q = 0; q < T / 4; ++q) {
-      const uint4 w = __ldg(v + q);
-      acc[4 * q] += __popc(w.x & xw);
-      acc[4 * q + 1] += __popc(w.y & xw);
-      acc[4 * q + 2] += __popc(w.z & xw);
-      acc[4 * q + 3] += __popc(w.w & xw);
+    for (int b = 0; b < kCountBatches; ++b)
+      xw[b] = col[b] >= 0 ? __ldg(x + col[b]) : 0u;
+#pragma unroll
+    for (int b = 0; b < kCountBatches; ++b) {
+      const int kb = kb0 + 32 * b;
+      uint32_t live = __ballot_sync(kFull, xw[b] != 0);
+      while (live) {  // uniform: the same mask in every lane
+        uint32_t tw[kCountUnroll], xv[kCountUnroll];
+#pragma unroll
+        for (int u = 0; u < kCountUnroll; ++u) {
+          // group g takes the g-th of the next G live tiles
+          uint32_t m = live;
+          for (int q = 0; q < g; ++q) m &= m - 1;
+          const int j = m ? __ffs(m) - 1 : -1;
+#pragma unroll
+          for (int q = 0; q < G; ++q) live &= live - 1;
+          xv[u] = __shfl_sync(kFull, xw[b], j & 31);
+          const int64_t k = static_cast<int64_t>(kb + j) * T + r;
+          tw[u] = j >= 0 ? __ldg(tiles + k) : 0u;
+        }
+#pragma unroll
+        for (int u = 0; u < kCountUnroll; ++u) acc += __popc(tw[u] & xv[u]);
+      }
     }
   }
-  const int y = warp_reduce_scatter<T, IntPlus>(acc, lane);
-  if (lane < T) out[static_cast<size_t>(row) * T + lane] = y;
+#pragma unroll
+  for (int o = T; o < 32; o *= 2) acc += __shfl_xor_sync(kFull, acc, o);
+  if (g == 0) {
+    int32_t* o = out + static_cast<int64_t>(item_row[item]) * T + r;
+    if (item_slot[item] < 0) *o = acc;
+    else if (acc) atomicAdd(o, acc);
+  }
 }
 
-using BffKernel = void (*)(const int32_t*, const int32_t*, const uint32_t*,
-                           const float*, float*, int, float, float);
-using BbfKernel = void (*)(const int32_t*, const int32_t*, const uint32_t*,
-                           const uint32_t*, int32_t*, int);
+using BffKernel = void (*)(const int32_t*, const uint32_t*, const int32_t*,
+                           const int32_t*, const int32_t*, const float*,
+                           float*, float*, int, float, float);
+using BffMergeKernel = void (*)(const int32_t*, const int32_t*,
+                                const int32_t*, const float*, float*, int);
+using BbfKernel = void (*)(const int32_t*, const uint32_t*, const int32_t*,
+                           const int32_t*, const int32_t*, const uint32_t*,
+                           int32_t*, int);
 
 template <int M>
 BffKernel bff_for_t(int t) {
@@ -355,6 +482,26 @@ BffKernel bff_for(int t, int mode) {
   }
 }
 
+template <int M>
+BffMergeKernel bff_merge_for_t(int t) {
+  switch (t) {
+    case 4: return bmv_bff_merge_kernel<4, M>;
+    case 8: return bmv_bff_merge_kernel<8, M>;
+    case 16: return bmv_bff_merge_kernel<16, M>;
+    case 32: return bmv_bff_merge_kernel<32, M>;
+    default: return nullptr;
+  }
+}
+
+BffMergeKernel bff_merge_for(int t, int mode) {
+  switch (mode) {
+    case kSum: return bff_merge_for_t<kSum>(t);
+    case kMinPlus: return bff_merge_for_t<kMinPlus>(t);
+    case kMaxTimes: return bff_merge_for_t<kMaxTimes>(t);
+    default: return nullptr;
+  }
+}
+
 BbfKernel bbf_for(int t) {
   switch (t) {
     case 4: return bmv_bbf_kernel<4>;
@@ -365,8 +512,8 @@ BbfKernel bbf_for(int t) {
   }
 }
 
-dim3 grid_for(int n_rows) {
-  return dim3((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+dim3 grid_for(int n) {
+  return dim3((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
 }  // namespace
@@ -389,30 +536,52 @@ int bmv_bbb_pull(const void* row_ptr, const void* col_idx, const void* tiles,
 }
 
 // mode: 0 sum, 1 min_plus, 2 max_times; ident is the mode's identity.
-int bmv_bff(const void* row_ptr, const void* col_idx, const void* tiles,
-            const void* x3, void* out, int n_rows, int t, int mode,
-            float a_value, float ident, void* stream) {
+// out: float32[R * t], filled with ident by the caller (rows without
+// tiles keep it); scratch: float32[n_slots * t] for the items of cut rows.
+int bmv_bff(const void* col_idx, const void* tiles, const void* item_row,
+            const void* item_begin, const void* item_slot, int n_items,
+            const void* cut_row, const void* cut_first, const void* cut_count,
+            int n_cut, const void* x3, void* scratch, void* out, int t,
+            int mode, float a_value, float ident, void* stream) {
   const BffKernel k = bff_for(t, mode);
-  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows <= 0) return 0;
-  k<<<grid_for(n_rows), 32 * kWarpsPerBlock, 0,
-      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(row_ptr), static_cast<const int32_t*>(col_idx),
-      static_cast<const uint32_t*>(tiles), static_cast<const float*>(x3),
-      static_cast<float*>(out), n_rows, a_value, ident);
+  const BffMergeKernel km = bff_merge_for(t, mode);
+  if (k == nullptr || km == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_items <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  k<<<grid_for(n_items), 32 * kWarpsPerBlock, 0, s>>>(
+      static_cast<const int32_t*>(col_idx), static_cast<const uint32_t*>(tiles),
+      static_cast<const int32_t*>(item_row),
+      static_cast<const int32_t*>(item_begin),
+      static_cast<const int32_t*>(item_slot), static_cast<const float*>(x3),
+      static_cast<float*>(scratch), static_cast<float*>(out), n_items,
+      a_value, ident);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_cut <= 0) return static_cast<int>(err);
+  const int n_cells = n_cut * t;
+  const int per_block = 32 * kWarpsPerBlock;
+  km<<<(n_cells + per_block - 1) / per_block, per_block, 0, s>>>(
+      static_cast<const int32_t*>(cut_row),
+      static_cast<const int32_t*>(cut_first),
+      static_cast<const int32_t*>(cut_count),
+      static_cast<const float*>(scratch), static_cast<float*>(out), n_cells);
   return static_cast<int>(cudaGetLastError());
 }
 
-int bmv_bbf(const void* row_ptr, const void* col_idx, const void* tiles,
-            const void* x, void* out, int n_rows, int t, void* stream) {
+// out: int32[R * t], zeroed by the caller (rows without tiles stay 0).
+int bmv_bbf(const void* col_idx, const void* tiles, const void* item_row,
+            const void* item_begin, const void* item_slot, int n_items,
+            const void* x, void* out, int t, void* stream) {
   const BbfKernel k = bbf_for(t);
   if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows <= 0) return 0;
-  k<<<grid_for(n_rows), 32 * kWarpsPerBlock, 0,
+  if (n_items <= 0) return 0;
+  k<<<grid_for(n_items), 32 * kWarpsPerBlock, 0,
       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(row_ptr), static_cast<const int32_t*>(col_idx),
-      static_cast<const uint32_t*>(tiles), static_cast<const uint32_t*>(x),
-      static_cast<int32_t*>(out), n_rows);
+      static_cast<const int32_t*>(col_idx), static_cast<const uint32_t*>(tiles),
+      static_cast<const int32_t*>(item_row),
+      static_cast<const int32_t*>(item_begin),
+      static_cast<const int32_t*>(item_slot), static_cast<const uint32_t*>(x),
+      static_cast<int32_t*>(out), n_items);
   return static_cast<int>(cudaGetLastError());
 }
 

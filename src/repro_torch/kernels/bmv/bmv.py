@@ -5,8 +5,12 @@
   bmv_bff       replaces ``bmv_bin_full_full_pallas`` (semiring mxv)
   bmv_bbf       replaces ``bmv_bin_bin_full_pallas`` (count mxv)
 
-All take the B2SR CSR-over-tiles arrays as they are (no ELL padding, one
-launch).
+All take the B2SR CSR-over-tiles arrays as they are (no ELL padding).
+``bmv_bff`` and ``bmv_bbf`` cut each tile-row into work items
+(``kernels/items.py``), runs of its tiles that a warp takes each, so a
+hub tile-row spreads over many warps; a caller may pass the items it
+keeps for the matrix (the ``b2sr_cuda`` rows do). Any cut gives the same
+result (the sum mode of ``bmv_bff`` up to float32 rounding).
 
 A CUDA tensor goes to the kernel: a build or launch failure raises. A
 CPU tensor goes to the plain version in ``ref.py``. Each wrapper counts
@@ -25,12 +29,22 @@ import torch
 from repro_torch.core.words import WORD
 from repro_torch.kernels import common
 from repro_torch.kernels.bmv import ref
+from repro_torch.kernels.items import WorkItems, check_items, cut_rows
 
 SOURCE = Path(__file__).with_name("bmv.cu")
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _BBB_ARGS = [_PTR] * 6 + [_INT] * 3 + [_PTR]
-_BFF_ARGS = [_PTR] * 5 + [_INT] * 3 + [_FLOAT] * 2 + [_PTR]
-_BBF_ARGS = [_PTR] * 5 + [_INT] * 2 + [_PTR]
+_BFF_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 3 + [_INT] + [_PTR] * 3 + \
+    [_INT] * 2 + [_FLOAT] * 2 + [_PTR]
+_BBF_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 2 + [_INT] + [_PTR]
+#: work of a ``bmv_bff`` item, in set bits plus one per tile (a lane
+#: gathers an entry of x per set bit of its word); equal to
+#: ``spmm.DENSE_ITEM_WORK``, so the two kernels share one cut
+BFF_ITEM_WORK = 2048
+#: work of a ``bmv_bbf`` item, in tiles (a warp reads 32 column indices
+#: and x words at a time, whatever the tiles' bits); equal to
+#: ``spmm.BBF_ITEM_WORK``, so the two kernels share one cut
+BBF_ITEM_WORK = 256
 #: ``mode`` argument of the ``bmv_bff`` kernel
 BFF_MODE_IDS = {"sum": 0, "min_plus": 1, "max_times": 2}
 
@@ -121,12 +135,15 @@ def bmv_bbb_pull(tile_row_ptr: torch.Tensor, tile_col_idx: torch.Tensor,
 
 def bmv_bff(tile_row_ptr: torch.Tensor, tile_col_idx: torch.Tensor,
             bit_tiles: torch.Tensor, x3: torch.Tensor, *, t: int, mode: str,
-            a_value: float = 1.0) -> torch.Tensor:
+            a_value: float = 1.0,
+            items: Optional[WorkItems] = None) -> torch.Tensor:
     """Semiring mxv over the dense tiles ``x3`` [C, t]: float32[R * t].
 
     ``y[i] = ⊕_j (A_ij ? a_value ⊗ x_j : ⊕-identity)`` with ``mode`` one of
     ``sum`` (arithmetic), ``min_plus``, ``max_times``; rows without a set
-    bit hold the identity. The kernel takes float32 only.
+    bit hold the identity. The kernel takes float32 only. ``items``
+    (default: cut by set bits, :data:`BFF_ITEM_WORK`) must be a cut of
+    these arrays.
     """
     if mode not in BFF_MODE_IDS:
         raise ValueError(f"mode must be one of {tuple(BFF_MODE_IDS)}, "
@@ -136,33 +153,48 @@ def bmv_bff(tile_row_ptr: torch.Tensor, tile_col_idx: torch.Tensor,
                            mode=mode, a_value=a_value)
     _check(tile_row_ptr, tile_col_idx, bit_tiles, x3, None, t,
            x_dtype=torch.float32)
+    ident = ref.BFF_MODES[mode][0]
     n_rows = tile_row_ptr.shape[0] - 1
-    out = torch.empty(n_rows * t, dtype=torch.float32, device=x3.device)
-    if n_rows == 0:
-        return out
-    common.call(SOURCE, "bmv_bff", _BFF_ARGS, x3, tile_row_ptr.data_ptr(),
-                tile_col_idx.data_ptr(), bit_tiles.data_ptr(), x3.data_ptr(),
-                out.data_ptr(), n_rows, t, BFF_MODE_IDS[mode],
-                float(a_value), ref.BFF_MODES[mode][0])
-    bmv_bff.launches += 1
+    out = torch.full((n_rows * t,), ident, dtype=torch.float32,
+                     device=x3.device)
+    if items is None:
+        items = cut_rows(tile_row_ptr, bit_tiles, BFF_ITEM_WORK, by_bits=True)
+    check_items(items, x3.device)
+    if items.n_items:
+        scratch = torch.empty(max(items.n_slots, 1) * t, dtype=torch.float32,
+                              device=x3.device)
+        common.call(SOURCE, "bmv_bff", _BFF_ARGS, x3, tile_col_idx.data_ptr(),
+                    bit_tiles.data_ptr(), items.row.data_ptr(),
+                    items.begin.data_ptr(), items.slot.data_ptr(),
+                    items.n_items, items.cut_row.data_ptr(),
+                    items.cut_first.data_ptr(), items.cut_count.data_ptr(),
+                    items.cut_row.numel(), x3.data_ptr(), scratch.data_ptr(),
+                    out.data_ptr(), t, BFF_MODE_IDS[mode], float(a_value),
+                    ident)
+        bmv_bff.launches += 1
     return out
 
 
 def bmv_bbf(tile_row_ptr: torch.Tensor, tile_col_idx: torch.Tensor,
-            bit_tiles: torch.Tensor, x: torch.Tensor, *,
-            t: int) -> torch.Tensor:
-    """Count mxv: ``int32[R * t]``, ``Σ_k popcount(tile_k[r] & x[col_k])``."""
+            bit_tiles: torch.Tensor, x: torch.Tensor, *, t: int,
+            items: Optional[WorkItems] = None) -> torch.Tensor:
+    """Count mxv: ``int32[R * t]``, ``Σ_k popcount(tile_k[r] & x[col_k])``.
+    ``items`` (default: cut by tiles, :data:`BBF_ITEM_WORK`) must be a cut
+    of these arrays."""
     if not x.is_cuda:
         return ref.bmv_bbf(tile_row_ptr, tile_col_idx, bit_tiles, x, t=t)
     _check(tile_row_ptr, tile_col_idx, bit_tiles, x, None, t)
     n_rows = tile_row_ptr.shape[0] - 1
-    out = torch.empty(n_rows * t, dtype=torch.int32, device=x.device)
-    if n_rows == 0:
-        return out
-    common.call(SOURCE, "bmv_bbf", _BBF_ARGS, x, tile_row_ptr.data_ptr(),
-                tile_col_idx.data_ptr(), bit_tiles.data_ptr(), x.data_ptr(),
-                out.data_ptr(), n_rows, t)
-    bmv_bbf.launches += 1
+    out = torch.zeros(n_rows * t, dtype=torch.int32, device=x.device)
+    if items is None:
+        items = cut_rows(tile_row_ptr, bit_tiles, BBF_ITEM_WORK)
+    check_items(items, x.device)
+    if items.n_items:
+        common.call(SOURCE, "bmv_bbf", _BBF_ARGS, x, tile_col_idx.data_ptr(),
+                    bit_tiles.data_ptr(), items.row.data_ptr(),
+                    items.begin.data_ptr(), items.slot.data_ptr(),
+                    items.n_items, x.data_ptr(), out.data_ptr(), t)
+        bmv_bbf.launches += 1
     return out
 
 

@@ -1,7 +1,9 @@
 """Dispatch-registry entries: the ``b2sr_cuda`` SpMM rows.
 
   mxm dense full        ``spmm_dense`` (masked: the mask after the
-                        kernel, as the reference's rows do)
+                        kernel, as the reference's rows do); the
+                        gradient in X is ``spmm_dense`` over the
+                        stored transpose
   mxm bitmat full       ``spmm_bbf`` (masked: the mask after the kernel)
   mxm frontier bin      ``spmm_bbb``, the mask ANDed in the kernel
   mxm_pull frontier bin the masked push kernel, as in the reference: a
@@ -12,31 +14,47 @@
 The kernels walk ``g.b2sr`` directly, so one function serves
 ``bucketed`` True and False, and ``row_chunk`` is ignored, as the
 reference's ``b2sr_pallas`` rows ignore it. Each kernel's work items are
-cut once per stored orientation and kept with it.
+cut once per stored orientation and kept with it
+(``kernels/items.py``). Operands are made contiguous here: the kernels
+take dense row-major arrays only.
 """
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.dispatch import BOTH, apply_output_mask, register
+from repro_torch.kernels.items import items_for
 from repro_torch.kernels.spmm.spmm import (BBB_ITEM_WORK, BBF_ITEM_WORK,
                                            DENSE_ITEM_WORK, spmm_bbb,
-                                           spmm_bbf, spmm_dense, work_items)
+                                           spmm_bbf, spmm_dense)
 
 
-def _items(g, budget: int, by_bits: bool = False):
-    """The work items of ``g``'s B2SR for this cut, kept with it (kernels
-    that cut alike share them)."""
-    cache = g.fwd.cache
-    key = ("work_items", budget, by_bits)
-    if key not in cache:
-        cache[key] = work_items(g.b2sr, budget, by_bits)
-    return cache[key]
+def _dense_items(g):
+    return items_for(g, DENSE_ITEM_WORK, by_bits=True)
+
+
+class _DenseProduct(torch.autograd.Function):
+    """``Y = A · X`` through ``spmm_dense``, differentiable in ``X``: the
+    gradient ``Aᵀ · dY`` runs the same kernel over the stored transpose
+    (``g.transposed()``, with the work items it keeps). On a CPU graph
+    both directions run the plain version."""
+
+    @staticmethod
+    def forward(ctx, g, x):
+        ctx.g = g
+        return spmm_dense(g.b2sr, x, items=_dense_items(g))
+
+    @staticmethod
+    def backward(ctx, dy):
+        gt = ctx.g.transposed()
+        return None, spmm_dense(gt.b2sr, dy.contiguous(),
+                                items=_dense_items(gt))
 
 
 @register("mxm", "dense", "full", "b2sr_cuda", bucketed=BOTH, masked=BOTH)
 def _mxm_dense(g, x, call):
-    y = spmm_dense(g.b2sr, x,
-                   items=_items(g, DENSE_ITEM_WORK, by_bits=True))
+    y = _DenseProduct.apply(g, x.contiguous())
     if call.mask is None:
         return y
     return apply_output_mask(y, call.mask, call.complement,
@@ -45,8 +63,8 @@ def _mxm_dense(g, x, call):
 
 @register("mxm", "bitmat", "full", "b2sr_cuda", bucketed=BOTH, masked=BOTH)
 def _mxm_bitmat(g, xw, call):
-    y = spmm_bbf(g.b2sr, xw, call.out_dtype,
-                 items=_items(g, BBF_ITEM_WORK))
+    y = spmm_bbf(g.b2sr, xw.contiguous(), call.out_dtype,
+                 items=items_for(g, BBF_ITEM_WORK))
     if call.mask is None:
         return y
     return apply_output_mask(y, call.mask, call.complement,
@@ -54,8 +72,10 @@ def _mxm_bitmat(g, xw, call):
 
 
 def _frontier(g, fw, call):
-    return spmm_bbb(g.b2sr, fw, call.mask, complement=call.complement,
-                    items=_items(g, BBB_ITEM_WORK))
+    mask = None if call.mask is None else call.mask.contiguous()
+    return spmm_bbb(g.b2sr, fw.contiguous(), mask,
+                    complement=call.complement,
+                    items=items_for(g, BBB_ITEM_WORK))
 
 
 register("mxm", "frontier", "bin", "b2sr_cuda", bucketed=BOTH,

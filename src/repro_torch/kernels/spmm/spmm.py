@@ -9,7 +9,7 @@
               aggregation)
 
 All three take the B2SR as it is (no ELL padding, one launch per call) and
-cut each tile-row into work items (:func:`work_items`), runs of its
+cut each tile-row into work items (``kernels/items.py``), runs of its
 tiles of bounded work that a warp takes each, so that a hub tile-row
 spreads over many warps; a caller may pass the items it keeps for the
 matrix (the ``b2sr_cuda`` rows do). Any cut gives the same result.
@@ -23,15 +23,15 @@ went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 from pathlib import Path
 from typing import Optional
 
 import torch
 
-from repro_torch.core.b2sr import B2SR, tile_rows
-from repro_torch.core.words import WORD, popcount
+from repro_torch.core.b2sr import B2SR
+from repro_torch.core.words import WORD
 from repro_torch.kernels import common
+from repro_torch.kernels.items import WorkItems, check_items, work_items
 from repro_torch.kernels.spmm import ref
 
 SOURCE = Path(__file__).with_name("spmm.cu")
@@ -52,62 +52,6 @@ BBF_ITEM_WORK = 256
 DENSE_ITEM_WORK = 2048
 
 
-@dataclasses.dataclass(frozen=True)
-class WorkItems:
-    """A B2SR's tile-rows cut into runs of consecutive tiles.
-
-    Item ``i`` holds tiles ``begin[i] .. begin[i + 1]`` of tile-row
-    ``row[i]``; rows without tiles have no item. A row cut into several
-    items gives each a scratch ``slot`` (-1 for an item that is its whole
-    row), and ``cut_row``, ``cut_first``, ``cut_count`` list the cut rows
-    with their first slot and their number of items.
-    """
-
-    row: torch.Tensor         # int32[n_items]
-    begin: torch.Tensor       # int32[n_items + 1]
-    slot: torch.Tensor        # int32[n_items]
-    cut_row: torch.Tensor     # int32[n_cut]
-    cut_first: torch.Tensor   # int32[n_cut]
-    cut_count: torch.Tensor   # int32[n_cut]
-    n_slots: int
-
-    @property
-    def n_items(self) -> int:
-        return int(self.row.shape[0])
-
-
-def work_items(m: B2SR, budget: int, by_bits: bool = False) -> WorkItems:
-    """Cut ``m``'s tile-rows into :class:`WorkItems` (on ``m``'s device):
-    runs of a row's tiles whose work adds up to at most ``budget`` (a
-    single tile may exceed it). A tile's work is 1, or with ``by_bits``
-    its set bits plus one."""
-    dev = m.device
-    rows = tile_rows(m)
-    if by_bits:
-        work = popcount(m.bit_tiles).sum(1, dtype=torch.int64) + 1
-    else:
-        work = torch.ones(m.n_tiles, dtype=torch.int64, device=dev)
-    done = torch.cumsum(work, 0) - work              # before each tile
-    part = (done - done[m.tile_row_ptr.long()[rows]]) // budget
-    first = torch.ones(m.n_tiles, dtype=torch.bool, device=dev)
-    first[1:] = (rows[1:] != rows[:-1]) | (part[1:] != part[:-1])
-    starts = torch.nonzero(first).flatten()
-    item_row = rows[starts]
-    per_row = torch.bincount(item_row, minlength=m.n_tile_rows)
-    cut = per_row[item_row] > 1
-    slot = torch.where(cut, torch.cumsum(cut.long(), 0) - 1, -1)
-    cut_rows = torch.nonzero(per_row > 1).flatten()
-    row_first = torch.cumsum(per_row, 0) - per_row   # each row's first item
-    i32 = torch.int32
-    return WorkItems(row=item_row.to(i32),
-                     begin=torch.cat([starts, starts.new_tensor(
-                         [m.n_tiles])]).to(i32),
-                     slot=slot.to(i32), cut_row=cut_rows.to(i32),
-                     cut_first=slot[row_first[cut_rows]].to(i32),
-                     cut_count=per_row[cut_rows].to(i32),
-                     n_slots=int(cut.sum()))
-
-
 def _check_words(name: str, a: torch.Tensor, shape, device) -> None:
     if a.device != device:
         raise ValueError(f"{name} is on {a.device}, the matrix on {device}")
@@ -117,15 +61,6 @@ def _check_words(name: str, a: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} shape {tuple(a.shape)} != {tuple(shape)}")
     if not a.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-
-
-def _check_items(items: WorkItems, m: B2SR) -> None:
-    if items.row.device != m.device or int(items.begin.shape[0]) != \
-            items.n_items + 1:
-        raise ValueError(f"work items on {items.row.device} with "
-                         f"{items.begin.shape[0]} begins for "
-                         f"{items.n_items} items; the matrix is on "
-                         f"{m.device}")
 
 
 def _check_aligned(m: B2SR) -> None:
@@ -156,7 +91,7 @@ def spmm_bbb(m: B2SR, f: torch.Tensor, mask: Optional[torch.Tensor] = None,
     _check_aligned(m)
     if items is None:
         items = work_items(m, BBB_ITEM_WORK)
-    _check_items(items, m)
+    check_items(items, m.device)
     out = torch.zeros((m.n_tile_rows, t, w), dtype=WORD, device=f.device)
     if items.n_items and w:
         fnz = torch.empty(m.n_tile_cols, dtype=WORD, device=f.device)
@@ -187,7 +122,7 @@ def spmm_dense(m: B2SR, x: torch.Tensor, *,
     _check_aligned(m)
     if items is None:
         items = work_items(m, DENSE_ITEM_WORK, by_bits=True)
-    _check_items(items, m)
+    check_items(items, m.device)
     d = x.shape[1]
     y = torch.zeros((m.n_rows, d), dtype=torch.float32, device=x.device)
     if items.n_items and d:
@@ -222,7 +157,7 @@ def spmm_bbf(m: B2SR, xw: torch.Tensor, out_dtype=torch.float32, *,
     _check_aligned(m)
     if items is None:
         items = work_items(m, BBF_ITEM_WORK)
-    _check_items(items, m)
+    check_items(items, m.device)
     y = torch.zeros((m.n_tile_rows * t, d), dtype=torch.int32,
                     device=xw.device)
     if items.n_items and d:
