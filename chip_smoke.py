@@ -17,15 +17,16 @@ exits non-zero.
 
   1. kernels: each kernel against its plain PyTorch version
      (``kernels/bmv/ref.py``) on the card, at tile dims 4/8/16/32 on small
-     dot/rmat/road graphs and on the full graph. ``bmv_bbb_push`` and
-     ``bmv_bbb_pull`` bit for bit (frontiers at 0.1%/10%/60% density,
-     masks with complement on and off); ``bmv_bbf`` bit for bit (the same
-     frontiers); ``bmv_bff`` bit for bit in modes min_plus and max_times
-     and, in mode sum, within ``|y - y_plain| <= 1e-5 * (A·|a·x|)``
-     elementwise and equal bit for bit on a second launch, each with
-     ``a_value`` 1.0 and 0.0. ``bmv_bbf`` and ``bmv_bff`` run with their
-     default work items and with items of 3 tiles (every row of more
-     than 3 tiles cut and merged).
+     dot/rmat/road graphs and on the full graph. ``bmv_bbb_push`` bit
+     for bit (frontiers at 0.1%/10%/60% density; no mask, a mask kept
+     and its complement) and ``bmv_bbb_pull`` (the masks); ``bmv_bbf``
+     bit for bit (the same frontiers); ``bmv_bff`` bit for bit in modes
+     min_plus and max_times and, in mode sum, within
+     ``|y - y_plain| <= 1e-5 * (A·|a·x|)`` elementwise and equal bit for
+     bit on a second launch, each with ``a_value`` 1.0 and 0.0. Push,
+     ``bmv_bbf`` and ``bmv_bff`` run with their default work items and
+     with items of 3 tiles (every row of more than 3 tiles cut and
+     merged).
   2. bfs: Graph500 R-MAT scale 21, edgefactor 16 (n = 2,097,152;
      A/B/C = 0.57/0.19/0.19; symmetrised, no self-loops), tile dim 32.
      ``direction`` push/pull/auto from 4 sources on ``b2sr_cuda``, then on
@@ -92,7 +93,9 @@ exits non-zero.
      plain versions, the ``csr`` rows, one cuSPARSE SpMM
      (``torch.sparse.mm`` of the float CSR by [n, 64] frontiers and by
      [n, 32] and [n, 64] float X: the yardstick, which the port never
-     calls) and the bound.
+     calls) and the bound; ``spmm_dense`` on the last PPR input with
+     each V the kernel has (columns a lane takes per pass), beside the
+     registers ``ptxas`` gave each.
  15. bitpack: ``kernels.bitpack.ops.bit_transpose`` of the graph's
      tiles (equal to the tiles of the stored transpose, which is built
      from the swapped COO) and ``pack_dense`` of a [32768, 32768] uint8
@@ -112,7 +115,8 @@ exits non-zero.
      model, every handle equal to its ``gnn_infer`` column. Prints the
      walls, the nodes per second of the flush, the peak device memory,
      ``spmm_dense`` at D = 1433 beside cuSPARSE with its scratch bytes,
-     and ``spmm_bbf`` and ``pack_rows`` per launch beside their plain
+     the V the launcher chose and each V's time and registers, and
+     ``spmm_bbf`` and ``pack_rows`` per launch beside their plain
      versions, the ``csr`` row and (``spmm_bbf``) cuSPARSE SpMM of the
      unpacked 0/1 matrix.
      In phases 15-16 the kernels' launch counts are set to 0 just before
@@ -122,7 +126,7 @@ exits non-zero.
      beside its plain version, the ``csr`` row, one cuSPARSE SpMV call
      (``torch.mv`` on the float CSR) where that computes the same
      function, and the bound (bytes over 3.35 TB/s or operations over
-     67 TFLOP/s); the graph's B2SR and CSR bytes. ``bmv_bff`` and
+     67 TFLOP/s); the graph's B2SR and CSR bytes. Push, ``bmv_bff`` and
      ``bmv_bbf`` run with the work items the registry keeps, and the
      line gives the cut's one-off time apart, each kernel on the hub
      tile-rows' items alone, and ``bmv_bff`` (sum) at tile dims 16 and 8
@@ -139,11 +143,14 @@ mask, a keep mask and its complement; TC on L and on a masked A·Aᵀ), and
 the triangle counts and A² patterns of those graphs against SciPy;
 ``spmm_bbb`` at 1, 33 and 70 sources (W = 1, 2, 3) and frontier
 densities 0.05% and 5%, unmasked, masked and complemented, bit for bit,
-and ``spmm_dense`` at D = 1, 32, 33, 64, bit for bit with small-integer
-X and within ``|y - y_plain| <= 1e-5 * (A·|X|)`` with random X, on the
-small graphs and the full graph; ``spmm_bbf`` (work items of 256 and of
-3 tiles) and ``pack_rows`` (float32 and bool input) at D = 1, 16, 33, 130
-on the small graphs and at D = 16 on the full graph, ``pack_dense`` of
+and ``spmm_dense`` at D = 1, 32, 33, 64, 130, 1433 on the small graphs
+(with work items of 3 tiles too) and at D = 1, 32, 33, 64 on the full
+graph, bit for bit with small-integer X and, with random X, within
+``|y - y_plain| <= 1e-5 * (A·|X|)``, the same bits on a second launch
+and (D > 32, small graphs) the same bits with every V; ``spmm_bbf``
+(work items of 256 and of 3 tiles) and ``pack_rows`` (float32 and bool
+input) at D = 1, 16, 33, 130 on the small graphs and at D = 16 on the
+full graph, ``pack_dense`` of
 each small graph's dense adjacency, row- and column-major (row-major also
 equal to the graph's own B2SR tiles), and ``bit_transpose`` of every
 graph's tiles, all bit for bit.
@@ -220,7 +227,8 @@ PPR_SEEDS = 32                 # batched PPR batch
 MSKHOP_K = 2
 SPMM_SOURCES = (1, 33, 70)     # spmm_bbb checks: W = 1, 2, 3 source words
 SPMM_DENSITIES = (0.0005, 0.05)
-SPMM_WIDTHS = (1, 32, 33, 64)  # spmm_dense checks: D
+SPMM_WIDTHS = (1, 32, 33, 64, 130, 1433)  # spmm_dense checks: D
+SPMM_FULL_WIDTHS = (1, 32, 33, 64)         # the same on the full graph
 BATCH_QUERIES = (140, 60)      # batcher: BFS and PPR queries, duplicates in
 GNN_WIDTHS = (1, 16, 33, 130)  # spmm_bbf / pack_rows checks: D
 BOW_WORDS = 18                 # words per node of the bag-of-words features
@@ -370,25 +378,32 @@ def phase_kernels(full_g, rng):
     worst_sum_ratio = 0.0
     for name, g in cases:
         m = g.b2sr
-        # bmv_bbf and bmv_bff also with items of 3 tiles: every row of
-        # more than 3 tiles is cut and merged
+        # push, bmv_bbf and bmv_bff also with items of 3 tiles: every row
+        # of more than 3 tiles is cut and merged
         cuts = (None, work_items(m, 3))
         for dens in DENSITIES:
             x = g.pack(torch.as_tensor(rng.random(g.n_cols) < dens,
                                        device=DEVICE))
             mask = g.pack_rows(torch.as_tensor(rng.random(g.n_rows) < 0.5,
                                                device=DEVICE))
-            for comp in (True, False):
-                args, kw = kernel_args(m, x, mask, comp)
-                for k in ("bmv_bbb_push", "bmv_bbb_pull"):
-                    got = getattr(bmv, k)(*args, **kw)
+            # push with no mask, the mask kept and its complement; pull
+            # with the mask
+            for mk, comp in ((None, True), (mask, True), (mask, False)):
+                args, kw = kernel_args(m, x, mk, comp)
+                runs = [("bmv_bbb_push", items) for items in cuts]
+                if mk is not None:
+                    runs.append(("bmv_bbb_pull", None))
+                for k, items in runs:
+                    extra = {} if k == "bmv_bbb_pull" else {"items": items}
+                    got = getattr(bmv, k)(*args, **kw, **extra)
                     want = getattr(ref, k)(*args, **kw)
                     sync()
                     err = int((to_uint(got) - to_uint(want)).abs().max())
                     max_err[k] = max(max_err[k], err)
                     n_checks += 1
                     if err:
-                        bad.append([k, name, m.tile_dim, dens, comp])
+                        bad.append([k, name, m.tile_dim, dens,
+                                    mk is not None, comp, items is None])
             want = ref.bmv_bbf(*b2sr_args(m), x, t=m.tile_dim)
             for items in cuts:
                 got = bmv.bmv_bbf(*b2sr_args(m), x, t=m.tile_dim,
@@ -525,20 +540,39 @@ def check_spmm(cases, max_err, bad):
                     if err:
                         bad.append(["spmm_bbb", name, t, s, dens,
                                     mask is not None, comp])
-        for d in SPMM_WIDTHS:
+        full = name == "rmat_full"
+        # items of 3 tiles cut every row of more than 3 tiles; on the
+        # full graph their scratch would take n_slots · t · D floats
+        cuts = (None,) if full else (None, spmm.work_items(m, 3))
+        for d in (SPMM_FULL_WIDTHS if full else SPMM_WIDTHS):
             xi = torch.randint(-3, 4, (g.n_cols, d), generator=gen,
                                device=DEVICE).float()
-            err = value_err(spmm.spmm_dense(m, xi), ref.spmm_dense(m, xi))
+            want_i = ref.spmm_dense(m, xi)
             xf = torch.randn((g.n_cols, d), generator=gen, device=DEVICE)
-            got, want = spmm.spmm_dense(m, xf), ref.spmm_dense(m, xf)
+            want = ref.spmm_dense(m, xf)
             bound = SUM_TOL * ref.spmm_dense(m, xf.abs()).double()
-            diff = (got.double() - want.double()).abs()
-            worst = max(worst, float((diff / bound.clamp_min(1e-30)).max()))
-            max_err["spmm_dense"] = max(max_err["spmm_dense"], err,
-                                        value_err(got, want))
-            n_checks += 2
-            if err or not bool((diff <= bound).all()):
-                bad.append(["spmm_dense", name, t, d, err])
+            for items in cuts:
+                err = value_err(spmm.spmm_dense(m, xi, items=items), want_i)
+                got = spmm.spmm_dense(m, xf, items=items)
+                again = spmm.spmm_dense(m, xf, items=items)
+                same = torch.equal(got.view(torch.int32),
+                                   again.view(torch.int32))
+                # every V sums in the same order: the same bits
+                for vec in (spmm.DENSE_VECS if d > 32 and not full
+                            else ()):
+                    same &= torch.equal(got.view(torch.int32),
+                                        spmm._spmm_dense(
+                                            m, xf, items,
+                                            vec).view(torch.int32))
+                diff = (got.double() - want.double()).abs()
+                worst = max(worst,
+                            float((diff / bound.clamp_min(1e-30)).max()))
+                max_err["spmm_dense"] = max(max_err["spmm_dense"], err,
+                                            value_err(got, want))
+                n_checks += 3
+                if err or not same or not bool((diff <= bound).all()):
+                    bad.append(["spmm_dense", name, t, d, err, same,
+                                items is None])
     return n_checks, worst
 
 
@@ -1062,51 +1096,55 @@ def phase_mxv(g, levels, n_iterations, rng):
 def needed_bytes_ops(m, x, mask, kernel):
     """Bytes and operations the inputs need (data-dependent).
 
-    Counted once: row pointers, x, mask and the output. Push reads the
-    column index of every tile and the t words of each tile whose
-    frontier word is non-zero. Pull needs only rows with an allowed lane,
-    and in each such row only the tiles, in stored order, up to the one
-    after which every allowed lane that any tile of the row can set is
-    set (the early exit at one-tile granularity; the kernel stops at
-    32-tile granularity, so it reads at least this). Operations: an AND
-    and an OR per tile word read. The count kernel reads what push reads
-    and writes t int32 per tile-row, with an AND, a popcount and an add
-    per tile word read.
+    Counted once: row pointers, x, mask and the output. Push and pull
+    compute one function: bit b of a row's output is set iff an allowed
+    lane b of the row is set by some tile (word b & x word != 0). For
+    each allowed lane that some tile sets, one witness suffices: the
+    first such tile in stored order, its column index (once per tile,
+    however many lanes it witnesses) and its word b. A row with an
+    allowed lane that no tile sets must show it: the column index of
+    every tile of the row, and word b of every tile whose x word is
+    non-zero, for each such lane b. Operations: an AND and an OR per
+    tile word read. The count kernel reads the column index of every
+    tile and the words of each tile whose frontier word is non-zero, and
+    writes t int32 per tile-row, with an AND, a popcount and an add per
+    tile word read.
     """
     import torch
     from repro_torch.core.b2sr import tile_rows
     from repro_torch.core.words import lane_mask, unpack_bits
 
     t = m.tile_dim
-    tr = tile_rows(m)
-    xw_nz = x[m.tile_col_idx.long()] != 0
-    if kernel == "bmv_bbb_pull":
-        n_rows = m.n_tile_rows
-        pos = torch.arange(m.n_tiles, device=x.device) - \
-            m.tile_row_ptr[tr].long()
-        count = (m.tile_row_ptr[1:] - m.tile_row_ptr[:-1]).long()
-        allowed = unpack_bits(~mask & lane_mask(t), t)
-        walk = torch.zeros(n_rows, dtype=torch.long, device=x.device)
-        for b in range(t):     # first tile of each row setting lane b
-            hit = torch.nonzero(xw_nz & ((m.bit_tiles[:, b] & x[
-                m.tile_col_idx.long()]) != 0)).flatten()
-            first = torch.full((n_rows,), -1, dtype=torch.long,
-                               device=x.device)
-            first = first.scatter_reduce(0, tr[hit], pos[hit], "amin",
-                                         include_self=False)
-            # a lane no tile sets keeps the row scanning to its end
-            need = torch.where(first >= 0, first + 1, count)
-            walk = torch.maximum(walk, torch.where(allowed[:, b], need, 0))
-        read = pos < walk[tr]
-        n_col, n_tiles = int(read.sum()), int((read & xw_nz).sum())
-    else:
-        n_col, n_tiles = m.n_tiles, int(xw_nz.sum())
     r, c = m.n_tile_rows, m.n_tile_cols
+    xw = x[m.tile_col_idx.long()]
+    xw_nz = xw != 0
     if kernel == "bmv_bbf":
-        nbytes = 4 * ((r + 1) + n_col + n_tiles * t + c + r * t)
+        n_tiles = int(xw_nz.sum())
+        nbytes = 4 * ((r + 1) + m.n_tiles + n_tiles * t + c + r * t)
         return nbytes, 3 * n_tiles * t
-    nbytes = 4 * ((r + 1) + n_col + n_tiles * t + c + r + r)
-    return nbytes, 2 * n_tiles * t
+    tr = tile_rows(m)
+    dev = x.device
+    count = (m.tile_row_ptr[1:] - m.tile_row_ptr[:-1]).long()
+    live = torch.zeros(r, dtype=torch.long, device=dev).index_add_(
+        0, tr, xw_nz.long())       # tiles with a non-zero x word, by row
+    allowed = unpack_bits(~mask & lane_mask(t), t)
+    tile_id = torch.arange(m.n_tiles, device=dev)
+    unset = torch.zeros(r, dtype=torch.long, device=dev)
+    witnesses, n_words = [], 0
+    for b in range(t):
+        hit = torch.nonzero((m.bit_tiles[:, b] & xw) != 0).flatten()
+        first = torch.full((r,), m.n_tiles, dtype=torch.long, device=dev)
+        first = first.scatter_reduce(0, tr[hit], tile_id[hit], "amin")
+        found = first < m.n_tiles
+        witnesses.append(first[allowed[:, b] & found])
+        n_words += int((allowed[:, b] & found).sum())
+        unset += (allowed[:, b] & ~found).long()
+    shown = unset > 0
+    wit = torch.unique(torch.cat(witnesses))
+    n_col = int((~shown[tr[wit]]).sum()) + int(count[shown].sum())
+    n_words += int((unset * live).sum())
+    nbytes = 4 * ((r + 1) + n_col + n_words + c + r + r)
+    return nbytes, 2 * n_words
 
 
 def bff_bytes_ops(m, nnz):
@@ -1158,13 +1196,13 @@ def bfs_timing(gt, levels, n_iterations, spmv):
         lib_ms = event_ms(lambda: spmv(x_dense))
         csr_row_ms.append(event_ms(lambda: gc.mxv(
             xf, desc=Descriptor(mask=vis, complement=True))))
-        calls = {}
-        for k in ("bmv_bbb_push", "bmv_bbb_pull"):
-            args, kw = kernel_args(m, front, visited, True)
-            calls[k] = (lambda k=k, args=args, kw=kw:
-                        getattr(bmv, k)(*args, **kw),
-                        lambda k=k, args=args, kw=kw:
-                        getattr(ref, k)(*args, **kw))
+        args, kw = kernel_args(m, front, visited, True)
+        calls = {
+            "bmv_bbb_push": (lambda: bmv.bmv_bbb_push(*args, **kw,
+                                                      items=items),
+                             lambda: ref.bmv_bbb_push(*args, **kw)),
+            "bmv_bbb_pull": (lambda: bmv.bmv_bbb_pull(*args, **kw),
+                             lambda: ref.bmv_bbb_pull(*args, **kw))}
         calls["bmv_bbf"] = (
             lambda: bmv.bmv_bbf(*b2sr_args(m), front, t=m.tile_dim,
                                 items=items),
@@ -1208,9 +1246,10 @@ def row_items(items, r: int, lo: int):
 
 
 def heavy_rows(gt, x):
-    """bmv_bff (sum mode) and bmv_bbf (every x word non-zero) on one
-    tile-row alone, its work items as the registry keeps them, for the row
-    with the most tiles and the row with the most set bits: what a hub row
+    """bmv_bff (sum mode), bmv_bbf and push (every x word non-zero, no
+    mask: push stops each item once every lane is set) on one tile-row
+    alone, its work items as the registry keeps them, for the row with
+    the most tiles and the row with the most set bits: what a hub row
     costs now that its items spread over many warps."""
     import torch
     from repro_torch.kernels.bmv import bmv
@@ -1242,7 +1281,9 @@ def heavy_rows(gt, x):
                                                items=fi)),
             "bbf_items": ci.n_items,
             "bbf_ms": event_ms(lambda: bmv.bmv_bbf(*one, xw, t=t,
-                                                   items=ci))}
+                                                   items=ci)),
+            "push_ms": event_ms(lambda: bmv.bmv_bbb_push(
+                *one, xw, None, t=t, items=ci))}
     return out
 
 
@@ -1615,6 +1656,32 @@ def bbb_bytes_ops(m, f, mask):
     return nbytes, set_bits * w
 
 
+def dense_by_vec(m, x, items, reps: int):
+    """spmm_dense on ``x`` with each V of the kernel (columns a lane takes
+    per pass): time per launch beside the registers and spill stores and
+    loads ``ptxas`` gave that instance at this tile dim, and whether its
+    output is the chosen V's, bit for bit."""
+    import re
+    import torch
+    from repro_torch.kernels import common
+    from repro_torch.kernels.spmm import spmm
+    res = {}
+    for name, r in common.kernel_resources("spmm").items():
+        hit = re.search(r"spmm_dense_kernelILi(\d+)ELi(\d+)E", name)
+        if hit and int(hit[1]) == m.tile_dim:
+            res[int(hit[2])] = r
+    chosen = spmm.dense_vec(x.shape[1])
+    want = spmm._spmm_dense(m, x, items, chosen).view(torch.int32)
+    by_vec = {}
+    for v in spmm.DENSE_VECS:
+        same = torch.equal(spmm._spmm_dense(m, x, items, v).view(
+            torch.int32), want)
+        by_vec[v] = {"ms": event_ms(lambda v=v: spmm._spmm_dense(
+            m, x, items, v), reps=reps), "same_bits": same,
+            **res.get(v, {})}
+    return {"chosen": chosen, "by_vec": by_vec}
+
+
 def dense_bytes_ops(m, d, nnz):
     """spmm_dense reads every tile (X is dense): pointers, column indices,
     tiles, X and Y once each; one add per (set bit, column)."""
@@ -1674,6 +1741,10 @@ def spmm_timing(g, levels, n_iterations, seeds):
             "csr_row_ms": event_ms(lambda: gct.mxm(x), reps=3),
             "library_ms": event_ms(lambda: torch.sparse.mm(spm, x), reps=3),
             **bound_row(*dense_bytes_ops(m, x.shape[1], g.nnz))})
+    vecs = dense_by_vec(m, x, dense_items, reps=5)   # the last iteration's
+    if not all(r["same_bits"] for r in vecs["by_vec"].values()):
+        fail("spmm_timing", f"spmm_dense's V instances differ at D = "
+                            f"{x.shape[1]}: {vecs['by_vec']}")
     x64 = torch.rand((n, 64), generator=torch.Generator(
         device=DEVICE).manual_seed(SEED), device=DEVICE)
     wide = {"ms": event_ms(lambda: spmm.spmm_dense(m, x64,
@@ -1682,6 +1753,7 @@ def spmm_timing(g, levels, n_iterations, seeds):
             **bound_row(*dense_bytes_ops(m, 64, g.nnz))}
     emit({"phase": "spmm_timing", "ok": True, "spmm_bbb": bbb,
           "spmm_dense": dense, "spmm_dense_d64": wide,
+          "spmm_dense_vec": vecs,
           "items": {"spmm_bbb": items.n_items,
                     "spmm_dense": dense_items.n_items,
                     "spmm_dense_cut_rows": int(dense_items.cut_row.numel())}})
@@ -1846,7 +1918,11 @@ def phase_gnn(g, adj, deg, srcs):
         plain packing, and the counts of ``spmm_bbf``, the csr row and
         the plain version are equal bit for bit;
       - one ``QueryBatcher.flush`` of GNN_QUERIES queries per model (with
-        duplicates): every handle equals its ``gnn_infer`` column.
+        duplicates): every handle equals its ``gnn_infer`` column;
+      - ``spmm_dense`` of the features (D = 1433) against its plain
+        version on their first and last 64 columns, within
+        SUM_TOL · (A·|X|), and every V's output equal to the chosen V's
+        bit for bit.
     Returns the kernel table rows of spmm_bbf and pack_rows, the
     b2sr_cuda launches, and the runs for the profile phase.
     """
@@ -1980,12 +2056,33 @@ def phase_gnn(g, adj, deg, srcs):
     del x01, counts, hb
     dense_items = spmm.work_items(m, spmm.DENSE_ITEM_WORK, by_bits=True)
     torch.cuda.empty_cache()
+    # the input layer's product at full size (row · D offsets past 2^31)
+    # against the plain version on its first and last 64 columns
+    y = spmm.spmm_dense(m, x, items=dense_items)
+    slice_err = 0.0
+    for lo in (0, cfg.d_in - 64):
+        xs = x[:, lo:lo + 64].contiguous()
+        want = ref.spmm_dense(m, xs).double()
+        bound = SUM_TOL * ref.spmm_dense(m, xs.abs()).double()
+        diff = (y[:, lo:lo + 64].double() - want).abs()
+        slice_err = max(slice_err,
+                        float((diff / bound.clamp_min(1e-30)).max()))
+        if not bool((diff <= bound).all()):
+            problems.append(f"spmm_dense D = {cfg.d_in} columns "
+                            f"{lo}:{lo + 64} != plain")
+    del y, xs, want, bound, diff
+    torch.cuda.empty_cache()
     dense_1433 = {
         "ms": event_ms(lambda: spmm.spmm_dense(m, x, items=dense_items),
-                       reps=1),
+                       reps=3),
         "library_ms": event_ms(lambda: torch.sparse.mm(spm, x), reps=1),
         "scratch_bytes": max(dense_items.n_slots, 1) * t * cfg.d_in * 4,
+        "err_over_bound_first_last_64": slice_err,
+        **dense_by_vec(m, x, dense_items, reps=1),
         **bound_row(*dense_bytes_ops(m, cfg.d_in, g.nnz))}
+    if not all(r["same_bits"] for r in dense_1433["by_vec"].values()):
+        problems.append(f"spmm_dense's V instances differ at D = "
+                        f"{cfg.d_in}")
     emit({"phase": "gnn", "ok": not problems, "problems": problems[:10],
           "config": "gcn-cora", "n": n, "d_in": cfg.d_in,
           "d_hidden": cfg.d_hidden, "n_classes": cfg.n_classes,

@@ -10,8 +10,8 @@
 // All four walk the B2SR CSR-over-tiles arrays directly: tile_row_ptr
 // int32[R+1], tile_col_idx int32[nT], bit_tiles uint32[nT, t]. The TPU
 // kernels needed an ELL slab per static shape (and one launch per
-// bucket); a warp here loops over tiles instead (push and pull: its own
-// row's; bmv_bff and bmv_bbf: a work item's, a run of one row's tiles),
+// bucket); a warp here loops over tiles instead (pull: its own row's;
+// push, bmv_bff and bmv_bbf: a work item's, a run of one row's tiles),
 // so there is no padding and one launch per step (bmv_bff: two when a row
 // is cut).
 //
@@ -20,19 +20,40 @@
 // Inputs: the packed frontier x uint32[C] and the mask uint32[R]; output
 // uint32[R].
 //
-// Layout: one warp per tile-row. Lanes stride over the row's tiles; a
-// lane gathers xw = x[col] and, only when xw != 0, loads the tile's t
-// words (16-byte vector loads) and sets bit r of its partial word if
+// Pull: one warp per tile-row. Lanes stride over the row's tiles; a lane
+// gathers xw = x[col] and, only when xw != 0, loads the tile's t words
+// (16-byte vector loads) and sets bit r of its partial word if
 // tile[r] & xw != 0. A warp OR-reduce (__reduce_or_sync) merges lanes.
+// It skips rows with no allowed lane and stops a row as soon as every
+// allowed lane is set.
+//
+// Push: work items, as bmv_bbf takes them (runs of at most 256 of a
+// row's tiles, one warp each; the registry passes the cut it keeps for
+// bmv_bbf), so a hub tile-row spreads over many warps: one warp per
+// tile-row put R-MAT scale 21's tile-row 0, 40,500 tiles, on one warp,
+// 1,266 dependent steps of column index, x word and tile. The warp first
+// loads its row's mask word and drops the item when no lane is allowed;
+// then it walks bmv_bbf's way (below): 32 column indices, their 32 x
+// words, a ballot of the non-zero ones, and only those tiles read, 32 / t
+// at a time, lane (g, r) holding word r of the g-th; the lane notes
+// whether word r & xw != 0, and a ballot folds the lane groups into the
+// item's hit word; after each 128 tiles the item stops once every
+// allowed lane is set (as pull does), or, in a cut row, once the row's
+// word, into which its items OR their hits, holds every allowed lane: a
+// hub row's items would otherwise each walk until their own tiles set
+// every lane. An item that is its whole row stores (hits & allowed);
+// the items of a cut row atomicOr theirs into the output, zeroed by the
+// wrapper: OR is order-free and the mask distributes over it, so the
+// result is the same bits whatever the cut and the order.
 //
 // Bound: device-memory bytes. Per tile the work is t ANDs against a
 // 4t-byte read, far below the card's operations-per-byte line; skipping
 // tiles whose frontier word is zero is what keeps a sparse push frontier
-// from reading the whole graph. The pull kernel also skips rows with no
-// allowed lane and stops a row as soon as every allowed lane is set.
+// from reading the whole graph, and the mask skip and early exit what
+// keep a late, nearly visited one from it.
 //
-// Bit-exactness of the early exit: the accumulator only ever ORs
-// (hits & allowed), so once it equals `allowed` the tiles not yet read
+// Bit-exactness of the early exits: the accumulators only ever OR
+// (hits & allowed), so once one equals `allowed` the tiles not yet read
 // could only add bits that are already set.
 
 #include <cstdint>
@@ -63,31 +84,6 @@ __device__ __forceinline__ uint32_t tile_hits(const uint32_t* __restrict__ tile,
     hit |= static_cast<uint32_t>((w.w & xw) != 0) << (4 * q + 3);
   }
   return hit;
-}
-
-template <int T>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-bmv_bbb_push_kernel(const int32_t* __restrict__ row_ptr,
-                    const int32_t* __restrict__ col_idx,
-                    const uint32_t* __restrict__ tiles,
-                    const uint32_t* __restrict__ x,
-                    const uint32_t* __restrict__ mask,
-                    uint32_t* __restrict__ out, int n_rows, int complement) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_rows) return;  // uniform across the warp
-  const int begin = row_ptr[row];
-  const int end = row_ptr[row + 1];
-  uint32_t acc = 0;
-  for (int k = begin + lane; k < end; k += 32) {
-    const uint32_t xw = __ldg(x + col_idx[k]);
-    if (xw) acc |= tile_hits<T>(tiles + static_cast<size_t>(k) * T, xw);
-  }
-  acc = __reduce_or_sync(kFull, acc);
-  if (lane == 0) {
-    const uint32_t m = mask ? mask[row] : 0u;
-    out[row] = acc & (complement ? ~m : m) & lane_mask<T>();
-  }
 }
 
 template <int T>
@@ -123,16 +119,6 @@ bmv_bbb_pull_kernel(const int32_t* __restrict__ row_ptr,
 
 using Kernel = void (*)(const int32_t*, const int32_t*, const uint32_t*,
                         const uint32_t*, const uint32_t*, uint32_t*, int, int);
-
-Kernel push_for(int t) {
-  switch (t) {
-    case 4: return bmv_bbb_push_kernel<4>;
-    case 8: return bmv_bbb_push_kernel<8>;
-    case 16: return bmv_bbb_push_kernel<16>;
-    case 32: return bmv_bbb_push_kernel<32>;
-    default: return nullptr;
-  }
-}
 
 Kernel pull_for(int t) {
   switch (t) {
@@ -390,6 +376,52 @@ bmv_bff_merge_kernel(const int32_t* __restrict__ cut_row,
   out[static_cast<int64_t>(cut_row[c]) * T + r] = y;
 }
 
+// The column indices, then the x words, of kCountBatches batches of 32
+// tiles from kb0 (of an item ending at k1), each issued together; lane l
+// holds those of tile kb0 + 32 b + l (x word 0 past the item's end).
+__device__ __forceinline__ void load_batches(
+    const int32_t* __restrict__ col_idx, const uint32_t* __restrict__ x,
+    int kb0, int k1, int lane, uint32_t (&xw)[kCountBatches]) {
+  int col[kCountBatches];
+#pragma unroll
+  for (int b = 0; b < kCountBatches; ++b) {
+    const int k = kb0 + 32 * b + lane;
+    col[b] = k < k1 ? __ldg(col_idx + k) : -1;
+  }
+#pragma unroll
+  for (int b = 0; b < kCountBatches; ++b)
+    xw[b] = col[b] >= 0 ? __ldg(x + col[b]) : 0u;
+}
+
+// The live tiles (bits of `live`, a warp ballot of the x words xw) of
+// the batch of 32 tiles from kb, G = 32 / T at a time (kCountUnroll
+// steps' loads issued together), lane (g, r) reading word r of the g-th.
+// Calls f(word, x word) for every word a lane read (0 past the live
+// tiles).
+template <int T, typename F>
+__device__ __forceinline__ void read_live(const uint32_t* __restrict__ tiles,
+                                          int kb, uint32_t live, uint32_t xw,
+                                          int g, int r, F&& f) {
+  constexpr int G = 32 / T;
+  while (live) {  // uniform: the same mask in every lane
+    uint32_t tw[kCountUnroll], xv[kCountUnroll];
+#pragma unroll
+    for (int u = 0; u < kCountUnroll; ++u) {
+      // group g takes the g-th of the next G live tiles
+      uint32_t m = live;
+      for (int q = 0; q < g; ++q) m &= m - 1;
+      const int j = m ? __ffs(m) - 1 : -1;
+#pragma unroll
+      for (int q = 0; q < G; ++q) live &= live - 1;
+      xv[u] = __shfl_sync(kFull, xw, j & 31);
+      const int64_t k = static_cast<int64_t>(kb + j) * T + r;
+      tw[u] = j >= 0 ? __ldg(tiles + k) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kCountUnroll; ++u) f(tw[u], xv[u]);
+  }
+}
+
 template <int T>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock, kCountBlocksPerSM)
 bmv_bbf_kernel(const int32_t* __restrict__ col_idx,
@@ -399,7 +431,6 @@ bmv_bbf_kernel(const int32_t* __restrict__ col_idx,
                const int32_t* __restrict__ item_slot,
                const uint32_t* __restrict__ x, int32_t* __restrict__ out,
                int n_items) {
-  constexpr int G = 32 / T;
   const int lane = threadIdx.x & 31;
   const int g = lane / T;
   const int r = lane - g * T;
@@ -409,40 +440,13 @@ bmv_bbf_kernel(const int32_t* __restrict__ col_idx,
   const int k1 = item_begin[item + 1];
   int acc = 0;
   for (int kb0 = k0; kb0 < k1; kb0 += 32 * kCountBatches) {
-    // the column indices, then the x words, of kCountBatches batches of
-    // 32 tiles, each issued together
-    int col[kCountBatches];
     uint32_t xw[kCountBatches];
-#pragma unroll
-    for (int b = 0; b < kCountBatches; ++b) {
-      const int k = kb0 + 32 * b + lane;
-      col[b] = k < k1 ? __ldg(col_idx + k) : -1;
-    }
+    load_batches(col_idx, x, kb0, k1, lane, xw);
 #pragma unroll
     for (int b = 0; b < kCountBatches; ++b)
-      xw[b] = col[b] >= 0 ? __ldg(x + col[b]) : 0u;
-#pragma unroll
-    for (int b = 0; b < kCountBatches; ++b) {
-      const int kb = kb0 + 32 * b;
-      uint32_t live = __ballot_sync(kFull, xw[b] != 0);
-      while (live) {  // uniform: the same mask in every lane
-        uint32_t tw[kCountUnroll], xv[kCountUnroll];
-#pragma unroll
-        for (int u = 0; u < kCountUnroll; ++u) {
-          // group g takes the g-th of the next G live tiles
-          uint32_t m = live;
-          for (int q = 0; q < g; ++q) m &= m - 1;
-          const int j = m ? __ffs(m) - 1 : -1;
-#pragma unroll
-          for (int q = 0; q < G; ++q) live &= live - 1;
-          xv[u] = __shfl_sync(kFull, xw[b], j & 31);
-          const int64_t k = static_cast<int64_t>(kb + j) * T + r;
-          tw[u] = j >= 0 ? __ldg(tiles + k) : 0u;
-        }
-#pragma unroll
-        for (int u = 0; u < kCountUnroll; ++u) acc += __popc(tw[u] & xv[u]);
-      }
-    }
+      read_live<T>(tiles, kb0 + 32 * b, __ballot_sync(kFull, xw[b] != 0),
+                   xw[b], g, r,
+                   [&](uint32_t w, uint32_t xv) { acc += __popc(w & xv); });
   }
 #pragma unroll
   for (int o = T; o < 32; o *= 2) acc += __shfl_xor_sync(kFull, acc, o);
@@ -450,6 +454,66 @@ bmv_bbf_kernel(const int32_t* __restrict__ col_idx,
     int32_t* o = out + static_cast<int64_t>(item_row[item]) * T + r;
     if (item_slot[item] < 0) *o = acc;
     else if (acc) atomicAdd(o, acc);
+  }
+}
+
+// Push over work items (see the head of this file): bmv_bbf's batches,
+// each folded into the item's hit word and tested against the allowed
+// lanes of its row.
+template <int T>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock, kCountBlocksPerSM)
+bmv_bbb_push_kernel(const int32_t* __restrict__ col_idx,
+                    const uint32_t* __restrict__ tiles,
+                    const int32_t* __restrict__ item_row,
+                    const int32_t* __restrict__ item_begin,
+                    const int32_t* __restrict__ item_slot,
+                    const uint32_t* __restrict__ x,
+                    const uint32_t* __restrict__ mask,
+                    uint32_t* __restrict__ out, int n_items,
+                    int complement) {
+  constexpr int G = 32 / T;
+  const int lane = threadIdx.x & 31;
+  const int g = lane / T;
+  const int r = lane - g * T;
+  const int item = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (item >= n_items) return;  // uniform across the warp
+  const int row = item_row[item];
+  uint32_t allowed = lane_mask<T>();
+  if (mask != nullptr) {
+    const uint32_t m = __ldg(mask + row);
+    allowed &= complement ? ~m : m;
+  }
+  if (allowed == 0) return;  // uniform: nothing can land; out is zeroed
+  const int k0 = item_begin[item];
+  const int k1 = item_begin[item + 1];
+  const bool cut = item_slot[item] >= 0;
+  uint32_t acc = 0;  // warp-uniform: hits & allowed
+  for (int kb0 = k0; kb0 < k1; kb0 += 32 * kCountBatches) {
+    uint32_t xw[kCountBatches];
+    load_batches(col_idx, x, kb0, k1, lane, xw);
+#pragma unroll
+    for (int b = 0; b < kCountBatches; ++b) {
+      bool hit = false;  // lane (g, r): word r of a tile it read met x
+      read_live<T>(tiles, kb0 + 32 * b, __ballot_sync(kFull, xw[b] != 0),
+                   xw[b], g, r,
+                   [&](uint32_t tw, uint32_t xv) { hit |= (tw & xv) != 0; });
+      const uint32_t bits = __ballot_sync(kFull, hit);  // bit g * T + r
+#pragma unroll
+      for (int q = 0; q < G; ++q) acc |= (bits >> (q * T)) & allowed;
+    }
+    if (acc == allowed) break;  // uniform
+    // the items of a cut row share their hits through out: an item ORs
+    // its own in and stops once the row's allowed lanes are all set (its
+    // tiles not yet read could set no other bit)
+    if (cut) {
+      uint32_t seen = 0;
+      if (lane == 0) seen = atomicOr(out + row, acc);
+      if ((__shfl_sync(kFull, seen, 0) | acc) == allowed) break;
+    }
+  }
+  if (lane == 0) {
+    if (!cut) out[row] = acc;
+    else if (acc) atomicOr(out + row, acc);
   }
 }
 
@@ -502,6 +566,20 @@ BffMergeKernel bff_merge_for(int t, int mode) {
   }
 }
 
+using PushKernel = void (*)(const int32_t*, const uint32_t*, const int32_t*,
+                            const int32_t*, const int32_t*, const uint32_t*,
+                            const uint32_t*, uint32_t*, int, int);
+
+PushKernel push_for(int t) {
+  switch (t) {
+    case 4: return bmv_bbb_push_kernel<4>;
+    case 8: return bmv_bbb_push_kernel<8>;
+    case 16: return bmv_bbb_push_kernel<16>;
+    case 32: return bmv_bbb_push_kernel<32>;
+    default: return nullptr;
+  }
+}
+
 BbfKernel bbf_for(int t) {
   switch (t) {
     case 4: return bmv_bbf_kernel<4>;
@@ -520,12 +598,24 @@ dim3 grid_for(int n) {
 
 extern "C" {
 
-// mask may be null for push (no mask: keep every lane).
-int bmv_bbb_push(const void* row_ptr, const void* col_idx, const void* tiles,
-                 const void* x, const void* mask, void* out, int n_rows, int t,
+// mask may be null (keep every lane); out: uint32[R], zeroed by the caller
+// (rows without tiles, or without an allowed lane, stay 0).
+int bmv_bbb_push(const void* col_idx, const void* tiles, const void* item_row,
+                 const void* item_begin, const void* item_slot, int n_items,
+                 const void* x, const void* mask, void* out, int t,
                  int complement, void* stream) {
-  return launch(push_for(t), row_ptr, col_idx, tiles, x, mask, out, n_rows,
-                complement, stream);
+  const PushKernel k = push_for(t);
+  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_items <= 0) return 0;
+  k<<<grid_for(n_items), 32 * kWarpsPerBlock, 0,
+      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(col_idx), static_cast<const uint32_t*>(tiles),
+      static_cast<const int32_t*>(item_row),
+      static_cast<const int32_t*>(item_begin),
+      static_cast<const int32_t*>(item_slot), static_cast<const uint32_t*>(x),
+      static_cast<const uint32_t*>(mask), static_cast<uint32_t*>(out), n_items,
+      complement);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int bmv_bbb_pull(const void* row_ptr, const void* col_idx, const void* tiles,

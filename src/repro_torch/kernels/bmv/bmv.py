@@ -6,7 +6,8 @@
   bmv_bbf       replaces ``bmv_bin_bin_full_pallas`` (count mxv)
 
 All take the B2SR CSR-over-tiles arrays as they are (no ELL padding).
-``bmv_bff`` and ``bmv_bbf`` cut each tile-row into work items
+``bmv_bbb_push``, ``bmv_bff`` and ``bmv_bbf`` cut each tile-row into work
+items
 (``kernels/items.py``), runs of its tiles that a warp takes each, so a
 hub tile-row spreads over many warps; a caller may pass the items it
 keeps for the matrix (the ``b2sr_cuda`` rows do). Any cut gives the same
@@ -33,7 +34,8 @@ from repro_torch.kernels.items import WorkItems, check_items, cut_rows
 
 SOURCE = Path(__file__).with_name("bmv.cu")
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_BBB_ARGS = [_PTR] * 6 + [_INT] * 3 + [_PTR]
+_PULL_ARGS = [_PTR] * 6 + [_INT] * 3 + [_PTR]
+_PUSH_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 3 + [_INT] * 2 + [_PTR]
 _BFF_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 3 + [_INT] + [_PTR] * 3 + \
     [_INT] * 2 + [_FLOAT] * 2 + [_PTR]
 _BBF_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 2 + [_INT] + [_PTR]
@@ -41,9 +43,9 @@ _BBF_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 2 + [_INT] + [_PTR]
 #: gathers an entry of x per set bit of its word); equal to
 #: ``spmm.DENSE_ITEM_WORK``, so the two kernels share one cut
 BFF_ITEM_WORK = 2048
-#: work of a ``bmv_bbf`` item, in tiles (a warp reads 32 column indices
-#: and x words at a time, whatever the tiles' bits); equal to
-#: ``spmm.BBF_ITEM_WORK``, so the two kernels share one cut
+#: work of a ``bmv_bbf`` and a ``bmv_bbb_push`` item, in tiles (a warp
+#: reads 32 column indices and x words at a time, whatever the tiles'
+#: bits); equal to ``spmm.BBF_ITEM_WORK``, so the kernels share one cut
 BBF_ITEM_WORK = 256
 #: ``mode`` argument of the ``bmv_bff`` kernel
 BFF_MODE_IDS = {"sum": 0, "min_plus": 1, "max_times": 2}
@@ -82,37 +84,34 @@ def _check(tile_row_ptr, tile_col_idx, bit_tiles, x, mask, t: int,
         raise ValueError("bit_tiles must be 16-byte aligned (vector loads)")
 
 
-def _launch(name: str, tile_row_ptr, tile_col_idx, bit_tiles, x, mask, t: int,
-            complement: bool) -> Optional[torch.Tensor]:
-    """Launch BFS kernel ``name``; returns ``None`` when there is no row."""
-    _check(tile_row_ptr, tile_col_idx, bit_tiles, x, mask, t)
-    n_rows = tile_row_ptr.shape[0] - 1
-    if n_rows == 0:
-        return None
-    out = torch.empty(n_rows, dtype=WORD, device=x.device)
-    common.call(SOURCE, name, _BBB_ARGS, x, tile_row_ptr.data_ptr(),
-                tile_col_idx.data_ptr(), bit_tiles.data_ptr(), x.data_ptr(),
-                None if mask is None else mask.data_ptr(), out.data_ptr(),
-                n_rows, t, int(complement))
-    return out
-
-
 def bmv_bbb_push(tile_row_ptr: torch.Tensor, tile_col_idx: torch.Tensor,
                  bit_tiles: torch.Tensor, x: torch.Tensor,
                  mask: Optional[torch.Tensor], *, t: int,
-                 complement: bool = True) -> torch.Tensor:
+                 complement: bool = True,
+                 items: Optional[WorkItems] = None) -> torch.Tensor:
     """Push BFS step: ``y = OR_k hits(tile, x[col]) & (~mask | mask)``.
 
     ``mask=None`` keeps every lane. Returns int32[R] packed words.
+    ``items`` (default: cut by tiles, :data:`BBF_ITEM_WORK`) must be a cut
+    of these arrays.
     """
     if not x.is_cuda:
         return ref.bmv_bbb_push(tile_row_ptr, tile_col_idx, bit_tiles, x,
                                 mask, t=t, complement=complement)
-    out = _launch("bmv_bbb_push", tile_row_ptr, tile_col_idx, bit_tiles, x,
-                  mask, t, complement)
-    if out is None:
-        return torch.zeros(0, dtype=WORD, device=x.device)
-    bmv_bbb_push.launches += 1
+    _check(tile_row_ptr, tile_col_idx, bit_tiles, x, mask, t)
+    n_rows = tile_row_ptr.shape[0] - 1
+    out = torch.zeros(n_rows, dtype=WORD, device=x.device)
+    if items is None:
+        items = cut_rows(tile_row_ptr, bit_tiles, BBF_ITEM_WORK)
+    check_items(items, x.device)
+    if items.n_items:
+        common.call(SOURCE, "bmv_bbb_push", _PUSH_ARGS, x,
+                    tile_col_idx.data_ptr(), bit_tiles.data_ptr(),
+                    items.row.data_ptr(), items.begin.data_ptr(),
+                    items.slot.data_ptr(), items.n_items, x.data_ptr(),
+                    None if mask is None else mask.data_ptr(),
+                    out.data_ptr(), t, int(complement))
+        bmv_bbb_push.launches += 1
     return out
 
 
@@ -125,11 +124,15 @@ def bmv_bbb_pull(tile_row_ptr: torch.Tensor, tile_col_idx: torch.Tensor,
     if not x.is_cuda:
         return ref.bmv_bbb_pull(tile_row_ptr, tile_col_idx, bit_tiles, x,
                                 mask, t=t, complement=complement)
-    out = _launch("bmv_bbb_pull", tile_row_ptr, tile_col_idx, bit_tiles, x,
-                  mask, t, complement)
-    if out is None:
-        return torch.zeros(0, dtype=WORD, device=x.device)
-    bmv_bbb_pull.launches += 1
+    _check(tile_row_ptr, tile_col_idx, bit_tiles, x, mask, t)
+    n_rows = tile_row_ptr.shape[0] - 1
+    out = torch.empty(n_rows, dtype=WORD, device=x.device)
+    if n_rows:
+        common.call(SOURCE, "bmv_bbb_pull", _PULL_ARGS, x,
+                    tile_row_ptr.data_ptr(), tile_col_idx.data_ptr(),
+                    bit_tiles.data_ptr(), x.data_ptr(), mask.data_ptr(),
+                    out.data_ptr(), n_rows, t, int(complement))
+        bmv_bbb_pull.launches += 1
     return out
 
 

@@ -5,8 +5,9 @@ one function serves ``bucketed`` True and False (the bucketed slabs were
 a TPU static-shape device) and ``row_chunk`` is ignored, as the
 reference's ``b2sr_pallas`` rows ignore it: the outputs are the same.
 The dense and count rows apply a mask after the kernel, as the
-reference's rows do, and pass the work items kept with the stored
-orientation (``kernels/items.py``). Operands are made contiguous here:
+reference's rows do; the push, dense and count rows pass the work items
+kept with the stored orientation (``kernels/items.py``; push and count
+share one cut). Operands are made contiguous here:
 the kernels take dense arrays only.
 """
 
@@ -33,7 +34,8 @@ def _mxv_bitvec(g, xw, call):
     mask = None if call.mask is None else call.mask.contiguous()
     return bmv_bbb_push(m.tile_row_ptr, m.tile_col_idx, m.bit_tiles,
                         xw.contiguous(), mask, t=m.tile_dim,
-                        complement=call.complement or call.mask is None)
+                        complement=call.complement or call.mask is None,
+                        items=items_for(g, BBF_ITEM_WORK))
 
 
 @register("mxv_pull", "bitvec", "bin", "b2sr_cuda", bucketed=BOTH,

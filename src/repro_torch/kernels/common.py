@@ -79,6 +79,27 @@ def load_library(source: Path) -> ctypes.CDLL:
     return lib
 
 
+def kernel_resources(stem: str) -> Dict[str, Dict[str, int]]:
+    """Registers and bytes of spill stores and spill loads of each kernel
+    of the library built from ``<stem>.cu`` by this process (from
+    ``ptxas -v``), by mangled name; empty when the library came from an
+    earlier build."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = ""
+    for line in BUILD_LOG.get(stem, "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = {"registers": 0, "spill_stores": 0,
+                         "spill_loads": 0}
+        elif name and "spill stores" in line:
+            words = line.split()
+            out[name]["spill_stores"] = int(words[4])
+            out[name]["spill_loads"] = int(words[8])
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(line.split("Used")[1].split()[0])
+    return out
+
+
 def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
     """Raise if the launcher returned a CUDA error (``cudaGetLastError``)."""
     if err != 0:

@@ -1,8 +1,9 @@
 """Work items: a B2SR's tile-rows cut into runs of bounded work.
 
-The row-product kernels (``bmv_bff``, ``bmv_bbf``, ``spmm_bbb``,
-``spmm_dense``, ``spmm_bbf``) give each warp one work item, a run of
-consecutive tiles of one tile-row, instead of a whole tile-row, so that
+The row-product kernels (``bmv_bbb_push``, ``bmv_bff``, ``bmv_bbf``,
+``spmm_bbb``, ``spmm_dense``, ``spmm_bbf``) give each warp one work
+item, a run of consecutive tiles of one tile-row, instead of a whole
+tile-row, so that
 a hub tile-row (40,500 tiles and 552,282 set bits in tile-row 0 of R-MAT
 scale 21 at t = 32) spreads over many warps instead of setting a floor
 under the launch. Any cut gives the same result; the kernels merge the

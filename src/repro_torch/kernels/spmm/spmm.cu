@@ -50,36 +50,48 @@
 //     X[col(k)*t + c, d] ---------------------------------------------------
 //
 // X float32 [n_cols, D] and Y float32 [n_rows, D], any D >= 1, unpadded.
-// Layout: a warp per item and per chunk of 32 columns d, lane l owning
-// column d0 + l. For each set bit (r, c) of the item's tiles every lane
-// adds X[col*t + c, d] to its accumulator r, so one set bit costs one
-// coalesced read of a row of X; the lanes load 32 tiles at once and stage
-// their set bits in shared memory, so the warp then issues 16 reads of X
-// before it waits (see the kernel). Items are cut by work (set bits), so
-// that the hub tile-row's 552,282 set bits spread over ~270 warps. The TPU kernel contracted unpacked
-// 0/1 tiles with X panels on the MXU; at about 2 set bits per 1,024-bit
-// tile the tensor cores would multiply zeros.
+// Layout: a warp per item. The warp walks its item's tiles once, 32 at a
+// time (lane j loads tile j's words to count its set bits), and stages
+// every set bit (r, c) of tile k as an entry: the row col(k)*t + c of X
+// and the bit-row r. A stable counting sort over the t bit-rows then
+// groups the entries by r, in shared memory (9 bytes an entry, kStage
+// entries a warp; an item with more entries is staged in rounds). Only
+// then does the warp loop over column passes: a pass covers 32 * V
+// columns, lane l owning columns d0 + l + 32v (v < V), and walks the
+// staged entries in order, each one V coalesced 128-byte reads of a row
+// of X, several entries' reads issued before their adds. Because the
+// entries come grouped by r, a lane sums a bit-row in V registers and
+// stores it when the group ends; nothing is accumulated in shared
+// memory. The tiles and column indices are thus read once per item
+// whatever D is (a version that re-walked them for each chunk of 32
+// columns read 45 times the 4.4 GB of tiles at D = 1,433), and the
+// launcher picks V from D, so D <= 32 runs one pass of V = 1. Items are
+// cut by work (set bits plus one per tile), so that the hub tile-row's
+// 552,282 set bits spread over ~270 warps. The TPU kernel contracted
+// unpacked 0/1 tiles with X panels on the MXU; at about 2 set bits per
+// 1,024-bit tile the tensor cores would multiply zeros.
 //
 // Float sums must not depend on the order warps finish, so a tile-row
 // cut into several items is not merged with atomics: each of its items
 // writes its partial sums to a scratch slot, and a second launch adds a
 // row's slots in item order. An item of a row that is not cut writes Y
-// itself. The sum order is then fixed by the data alone (tiles in stored
-// order, bits by row then column, items in order), and the result is the
-// same from run to run. Cutting also shortens the chains of float adds
-// (a hub bit-row's ~17,000 terms become ~300 partials), which keeps the
-// rounding error well inside 1e-5 of the sum of |terms|.
+// itself. A round's entries of bit-row r are added in stored order
+// (tiles in order, bits by column), a later round's sums added to the
+// earlier ones; so the sum order is fixed by the data and the cut alone,
+// and the result is the same from run to run. Cutting also shortens the
+// chains of float adds (a hub bit-row's ~17,000 terms become ~300
+// partials), which keeps the rounding error well inside 1e-5 of the sum
+// of |terms|.
 //
 // Bound: device-memory bytes. Counted once: column indices, every tile
 // (X is dense, no tile can be skipped), X and Y; at R-MAT scale 21 with
 // D = 32 that is about 4.6 GB, 1.4 ms at 3.35 TB/s, against one add per
 // (set bit, column): 2e9 at D = 32, 0.03 ms at 67 TFLOP/s. The kernel
-// reads a row of X per set bit, which L2 serves only in part (X is 268 MB
-// at D = 32), so it is bound by the latency of those gathers rather than
-// by the bytes above: a first version, which walked a warp's tiles one by
-// one with the accumulators in registers (126 of them at t = 32), had
-// about one read in flight per warp and took 61 ms per launch at R-MAT
-// scale 21, D = 32, where cuSPARSE's SpMM takes 4.2 ms.
+// reads a row of X per set bit: 63.5 M rows at scale 21, 8.1 GB at
+// D = 32 and 364 GB at D = 1,433, which L2 serves only in part (X is
+// 268 MB at D = 32 and 12 GB at D = 1,433), so it is bound by those
+// gathers, and by how many of them are in flight, rather than by the
+// bytes above.
 
 //
 // --- spmm_bbf: Y[i*t + r, j] = sum_{tiles k of row i}
@@ -121,15 +133,31 @@ constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFull = 0xffffffffu;
 // Source words a warp accumulates in one pass over its item's tiles.
 constexpr int kWordChunk = 32;
-// Set bits a spmm_dense warp stages in shared memory per round, and the
-// reads of X it issues before it adds them up.
-constexpr int kEntries = 256;
-constexpr int kGathers = 16;
-// Blocks of spmm_dense resident per SM that it asks the compiler for: a
-// cap of 64 registers a thread. Unbounded, it took 128 at t = 32 and held
-// 16 warps per SM; at 4 blocks it takes 56 and ran 1.46 times faster, at
-// 5 (48 registers, a small spill) no faster (R-MAT scale 21, D = 32).
-constexpr int kDenseBlocksPerSM = 4;
+// spmm_dense: warps a block; entries a warp stages per round (9 bytes
+// each: the row of X and the bit-row as staged, then the row of X in
+// sorted order), so that a block takes 4 * (9 * 640 + 384) = 24,576
+// bytes of static shared memory and eight fit in an SM; for each V, the
+// entries whose V reads of X a lane issues before their adds, and the
+// blocks per SM the kernel asks the compiler for (a register cap of
+// 65,536 / (128 * blocks) a thread). At R-MAT scale 21, t = 32 (tools/
+// spmm_variants.py on an H100, with reads of X that skipped L1, which
+// ran as fast as these: 5.14-5.16 against 5.16-5.17 ms at D = 32, 137.5
+// against 137.3 at D = 1,433): D = 32, V = 1 takes 5.14-5.16 ms with 8
+// entries in flight, 5.79-5.83 with 16 and 5.41 with 12; D = 1,433
+// takes 213.9 ms at V = 1, 173.2 at V = 2, 141.8 at V = 4 and 137.5 at
+// V = 8, which deeper loads (6 entries at 4 blocks, 127 registers: 138.0)
+// do not beat: the reads of X then run at about 2.7 TB/s. A stage of 512
+// entries (10 blocks at V = 1) ran D = 32 in 4.93-4.94 ms but D = 1,433
+// in 139.7 (more rounds).
+constexpr int kDenseWarps = 4;
+constexpr int kDenseThreads = 32 * kDenseWarps;
+constexpr int kStage = 640;
+
+template <int V>
+struct DenseTune {
+  static constexpr int entries = V == 8 ? 4 : 8;
+  static constexpr int blocks = V <= 2 ? 8 : V == 4 ? 6 : 5;
+};
 
 template <int T>
 __device__ __forceinline__ constexpr uint32_t lane_mask() {
@@ -249,19 +277,15 @@ spmm_bbb_kernel(const int32_t* __restrict__ col_idx,
   }
 }
 
-// One warp per item, lane l owning column d0 + l of the chunk. The warp
-// takes its item's tiles 32 at a time, lane j loading tile j's column
-// index and words (to count their set bits), so 32 tiles' loads are in
-// flight together. The lanes
-// then stage the set bits of those tiles, in (tile, r, c) order, as
-// entries (row of X, r) in shared memory (a warp prefix sum places each
-// lane's entries; more than kEntries take several rounds). Last, all
-// lanes walk the entries in order, kGathers reads of rows of X issued
-// before their adds into acc[r][lane] in shared memory, which only
-// lane l touches at column l. The order of the adds is the entry order,
-// whatever the staging, so the sum is the same from run to run.
-template <int T>
-__global__ void __launch_bounds__(kThreads, kDenseBlocksPerSM)
+// One warp per item (see the head of this file). Round by round, the
+// warp stages the set bits of its tiles as (row of X, bit-row r) in tile
+// order and counts them per bit-row; sorts the rows of X stably by r;
+// then runs the column passes over them, each lane summing a bit-row's
+// entries for its V columns in registers. The first round stores its
+// sums (zeros for a bit-row without entries in a scratch slot; Y is
+// zeroed by the wrapper), a later one adds to them.
+template <int T, int V>
+__global__ void __launch_bounds__(kDenseThreads, DenseTune<V>::blocks)
 spmm_dense_kernel(const int32_t* __restrict__ col_idx,
                   const uint32_t* __restrict__ tiles,
                   const int32_t* __restrict__ item_row,
@@ -269,102 +293,191 @@ spmm_dense_kernel(const int32_t* __restrict__ col_idx,
                   const int32_t* __restrict__ item_slot,
                   const float* __restrict__ x, float* __restrict__ scratch,
                   float* __restrict__ y, int n_items, int n_rows, int D) {
-  __shared__ float acc_all[kWarps][T * 32];
-  __shared__ int32_t xrow_all[kWarps][kEntries];
-  __shared__ uint8_t r_all[kWarps][kEntries];
+  constexpr int U = DenseTune<V>::entries;
+  __shared__ int32_t staged_x_all[kDenseWarps][kStage];
+  __shared__ uint8_t staged_r_all[kDenseWarps][kStage];
+  __shared__ int32_t sorted_x_all[kDenseWarps][kStage];
+  __shared__ int32_t count_all[kDenseWarps][32];
+  __shared__ int32_t end_all[kDenseWarps][32];
+  __shared__ int32_t next_all[kDenseWarps][32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int item = blockIdx.x * kWarps + warp;
+  const int item = blockIdx.x * kDenseWarps + warp;
   if (item >= n_items) return;  // uniform across the warp
-  float* acc = acc_all[warp];
-  int32_t* s_x = xrow_all[warp];
-  uint8_t* s_r = r_all[warp];
+  int32_t* s_xu = staged_x_all[warp];
+  uint8_t* s_ru = staged_r_all[warp];
+  int32_t* s_x = sorted_x_all[warp];
+  int32_t* count = count_all[warp];
+  int32_t* end = end_all[warp];
+  int32_t* next = next_all[warp];
   const int row = item_row[item];
   const int k0 = item_begin[item];
   const int k1 = item_begin[item + 1];
   const int slot = item_slot[item];
-  for (int d0 = 0; d0 < D; d0 += 32) {
-    const int d = d0 + lane;
-    const bool live = d < D;
+  // bit-row r of this item lands at out[r * D]; Y's last tile-row may
+  // hold fewer than T rows
+  float* out = slot < 0 ? y + static_cast<int64_t>(row) * T * D
+                        : scratch + static_cast<int64_t>(slot) * T * D;
+  const int n_r = slot < 0 ? min(T, n_rows - row * T) : T;
+  count[lane] = 0;
+  __syncwarp();
+  int fill = 0;  // entries staged in this round
+  int round = 0;
+
+  auto run_round = [&]() {
+    // bucket r holds sorted places [end[r] - count[r], end[r])
+    const int cnt = count[lane];
+    int off = cnt;
 #pragma unroll
-    for (int r = 0; r < T; ++r) acc[r * 32 + lane] = 0.0f;
-    for (int kb = k0; kb < k1; kb += 32) {
-      const int k = kb + lane;
-      // the tile is read again (from L1) while staging, rather than held
-      // in t registers, which at t = 32 cost occupancy and spills
-      const uint4* tile4 = reinterpret_cast<const uint4*>(
-          tiles + static_cast<int64_t>(k < k1 ? k : k0) * T);
-      int xbase = 0, p = 0;
-      if (k < k1) {
-        xbase = col_idx[k] * T;
+    for (int s = 1; s < 32; s *= 2) {
+      const int v = __shfl_up_sync(kFull, off, s);
+      if (lane >= s) off += v;
+    }
+    end[lane] = off;
+    next[lane] = off - cnt;
+    __syncwarp();
+    // stable scatter, 32 staged entries at a time: lanes with the same r
+    // take consecutive places in lane order
+    for (int e0 = 0; e0 < fill; e0 += 32) {
+      const int e = e0 + lane;
+      const int r = e < fill ? s_ru[e] : -1;
+      const unsigned peers = __match_any_sync(kFull, r);
+      const int rank = __popc(peers & ((1u << lane) - 1u));
+      const int pos = r >= 0 ? next[r] + rank : 0;
+      __syncwarp();
+      if (r >= 0) {
+        if (rank == 0) next[r] += __popc(peers);
+        s_x[pos] = s_xu[e];
+      }
+      __syncwarp();
+    }
+    int first = 0;  // the first bit-row with entries (uniform)
+    while (first < T - 1 && count[first] == 0) ++first;
+    for (int d0 = 0; d0 < D; d0 += 32 * V) {
+      const int dl = d0 + lane;
+      float acc[V];
 #pragma unroll
-        for (int q = 0; q < T / 4; ++q) {
-          const uint4 w4 = __ldg(tile4 + q);
-          p += __popc(w4.x) + __popc(w4.y) + __popc(w4.z) + __popc(w4.w);
+      for (int j = 0; j < V; ++j) acc[j] = 0.0f;
+      int cur = first;
+      int stop = end[cur];
+      auto emit = [&]() {  // bit-row cur's sums, then the next bit-row
+        float* o = out + static_cast<int64_t>(cur) * D + dl;
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          if (cur < n_r && dl + 32 * j < D) {
+            if (round == 0) o[32 * j] = acc[j];
+            else o[32 * j] += acc[j];
+          }
+          acc[j] = 0.0f;
         }
-      }
-      int off = p;  // inclusive prefix sum of the entry counts
+        if (cur == T - 1) return;  // the last bit-row: no next one
+        do ++cur; while (cur < T - 1 && count[cur] == 0);
+        stop = end[cur];
+      };
+      for (int e = 0; e < fill; e += U) {
+        float v[U][V];
 #pragma unroll
-      for (int s = 1; s < 32; s *= 2) {
-        const int v = __shfl_up_sync(kFull, off, s);
-        if (lane >= s) off += v;
-      }
-      const int total = __shfl_sync(kFull, off, 31);
-      off -= p;
-      for (int base = 0; base < total; base += kEntries) {
-        if (p && off < base + kEntries && off + p > base) {
-          int e = off - base;
-          for (int q = 0; q < T / 4; ++q) {
-            const uint4 w4 = __ldg(tile4 + q);
-            const uint32_t w[4] = {w4.x, w4.y, w4.z, w4.w};
+        for (int u = 0; u < U; ++u) {
+          const bool ok = e + u < fill;
+          const float* p =
+              x + static_cast<int64_t>(ok ? s_x[e + u] : 0) * D + dl;
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              uint32_t bits = w[i];
-              while (bits) {
-                const int c = __ffs(bits) - 1;
-                bits &= bits - 1;
-                if (e >= 0 && e < kEntries) {
-                  s_x[e] = xbase + c;
-                  s_r[e] = static_cast<uint8_t>(4 * q + i);
-                }
-                ++e;
-              }
-            }
+          for (int j = 0; j < V; ++j)
+            v[u][j] = ok && dl + 32 * j < D ? __ldg(p + 32 * j) : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (e + u < fill) {  // uniform, as are cur and stop
+            if (e + u == stop) emit();
+#pragma unroll
+            for (int j = 0; j < V; ++j) acc[j] += v[u][j];
           }
         }
-        __syncwarp();
-        const int m = min(kEntries, total - base);
-        int e = 0;
-        for (; e + kGathers <= m; e += kGathers) {
-          float v[kGathers];
+      }
+      if (fill) emit();
+      if (round == 0 && slot >= 0) {  // a slot's bit-rows without entries
+        for (int r = 0; r < T; ++r) {
+          if (count[r]) continue;
+          float* o = out + static_cast<int64_t>(r) * D + dl;
 #pragma unroll
-          for (int u = 0; u < kGathers; ++u)
-            v[u] = live ? __ldg(x + static_cast<int64_t>(s_x[e + u]) * D + d)
-                        : 0.0f;
-#pragma unroll
-          for (int u = 0; u < kGathers; ++u)
-            acc[s_r[e + u] * 32 + lane] += v[u];
+          for (int j = 0; j < V; ++j)
+            if (dl + 32 * j < D) o[32 * j] = 0.0f;
         }
-        for (; e < m; ++e) {
-          const float v =
-              live ? __ldg(x + static_cast<int64_t>(s_x[e]) * D + d) : 0.0f;
-          acc[s_r[e] * 32 + lane] += v;
-        }
-        __syncwarp();  // the entries are read before the next round
       }
     }
-    if (!live) continue;
+    __syncwarp();  // the entries and counts are read before the next round
+    count[lane] = 0;
+    __syncwarp();
+    fill = 0;
+    ++round;
+  };
+
+  for (int kb = k0; kb < k1; kb += 32) {
+    const int k = kb + lane;
+    const uint4* tile4 = reinterpret_cast<const uint4*>(
+        tiles + static_cast<int64_t>(k < k1 ? k : k0) * T);
+    int p = 0, xbase = 0;
+    uint32_t nz = 0;  // bit r: word r of the tile is not zero
+    if (k < k1) {
+      xbase = __ldg(col_idx + k) * T;
 #pragma unroll
-    for (int r = 0; r < T; ++r) {
-      const float v = acc[r * 32 + lane];
-      if (slot < 0) {
-        const int64_t yr = static_cast<int64_t>(row) * T + r;
-        if (yr < n_rows) y[yr * D + d] = v;
-      } else {
-        scratch[(static_cast<int64_t>(slot) * T + r) * D + d] = v;
+      for (int q = 0; q < T / 4; ++q) {
+        const uint4 w4 = __ldg(tile4 + q);
+        p += __popc(w4.x) + __popc(w4.y) + __popc(w4.z) + __popc(w4.w);
+        nz |= (static_cast<uint32_t>(w4.x != 0) |
+               static_cast<uint32_t>(w4.y != 0) << 1 |
+               static_cast<uint32_t>(w4.z != 0) << 2 |
+               static_cast<uint32_t>(w4.w != 0) << 3) << (4 * q);
       }
+    }
+    int off = p;  // inclusive prefix sum of the entry counts
+#pragma unroll
+    for (int s = 1; s < 32; s *= 2) {
+      const int v = __shfl_up_sync(kFull, off, s);
+      if (lane >= s) off += v;
+    }
+    const int total = __shfl_sync(kFull, off, 31);
+    off -= p;
+    // stage the batch's entries [base, base + take) at fill onwards; a
+    // full stage runs a round first
+    for (int base = 0; base < total;) {
+      const int take = min(total - base, kStage - fill);
+      if (take == 0) {
+        run_round();
+        continue;
+      }
+      if (p && off < base + take && off + p > base) {
+        // the non-zero words are read again (from L1) rather than held
+        // in t registers, which at t = 32 cost occupancy and spills
+        int e = off - base;
+        for (uint32_t wm = nz; wm; wm &= wm - 1) {
+          const int r = __ffs(wm) - 1;
+          uint32_t bits = __ldg(tiles + static_cast<int64_t>(k) * T + r);
+          const int n = __popc(bits);
+          const int lo = max(e, 0), hi = min(e + n, take);
+          if (hi > lo) atomicAdd(count + r, hi - lo);
+          if (e >= take) break;  // the rest lies past the stage
+          if (e + n <= 0) {
+            e += n;
+            continue;
+          }
+          while (bits) {
+            const int c = __ffs(bits) - 1;
+            bits &= bits - 1;
+            if (e >= 0 && e < take) {
+              s_xu[fill + e] = xbase + c;
+              s_ru[fill + e] = static_cast<uint8_t>(r);
+            }
+            ++e;
+          }
+        }
+      }
+      __syncwarp();
+      fill += take;
+      base += take;
     }
   }
+  if (fill || round == 0) run_round();
 }
 
 // Y rows of a cut tile-row: its items' partials added in item order. One
@@ -493,12 +606,23 @@ ColsKernel cols_for(int t) {
   }
 }
 
-DenseKernel dense_for(int t) {
+template <int V>
+DenseKernel dense_for_v(int t) {
   switch (t) {
-    case 4: return spmm_dense_kernel<4>;
-    case 8: return spmm_dense_kernel<8>;
-    case 16: return spmm_dense_kernel<16>;
-    case 32: return spmm_dense_kernel<32>;
+    case 4: return spmm_dense_kernel<4, V>;
+    case 8: return spmm_dense_kernel<8, V>;
+    case 16: return spmm_dense_kernel<16, V>;
+    case 32: return spmm_dense_kernel<32, V>;
+    default: return nullptr;
+  }
+}
+
+DenseKernel dense_for(int t, int v) {
+  switch (v) {
+    case 1: return dense_for_v<1>(t);
+    case 2: return dense_for_v<2>(t);
+    case 4: return dense_for_v<4>(t);
+    case 8: return dense_for_v<8>(t);
     default: return nullptr;
   }
 }
@@ -549,19 +673,20 @@ int spmm_bbb(const void* col_idx, const void* tiles, const void* item_row,
 }
 
 // y: float32[n_rows, D], zeroed by the caller (rows without tiles stay 0);
-// scratch: float32[n_slots, t, D] for the items of cut rows.
+// scratch: float32[n_slots, t, D] for the items of cut rows; v: columns a
+// lane takes per pass (1, 2, 4 or 8).
 int spmm_dense(const void* col_idx, const void* tiles, const void* item_row,
                const void* item_begin, const void* item_slot, int n_items,
                const void* cut_row, const void* cut_first,
                const void* cut_count, int n_cut, const void* x, void* scratch,
-               void* y, int n_rows, int D, int t, void* stream) {
-  const DenseKernel k = dense_for(t);
+               void* y, int n_rows, int D, int t, int v, void* stream) {
+  const DenseKernel k = dense_for(t, v);
   const MergeKernel km = merge_for(t);
   if (k == nullptr || km == nullptr || D <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_items <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  k<<<blocks_for(n_items, kWarps), kThreads, 0, s>>>(
+  k<<<blocks_for(n_items, kDenseWarps), kDenseThreads, 0, s>>>(
       static_cast<const int32_t*>(col_idx), static_cast<const uint32_t*>(tiles),
       static_cast<const int32_t*>(item_row),
       static_cast<const int32_t*>(item_begin),

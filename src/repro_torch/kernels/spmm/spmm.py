@@ -38,7 +38,7 @@ SOURCE = Path(__file__).with_name("spmm.cu")
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _BBB_ARGS = [_PTR] * 4 + [_INT] + [_PTR] * 4 + [_INT] * 4 + [_PTR]
 _DENSE_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 3 + [_INT] + [_PTR] * 3 + \
-    [_INT] * 3 + [_PTR]
+    [_INT] * 4 + [_PTR]
 _BBF_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 2 + [_INT] * 2 + [_PTR]
 #: work of a ``spmm_bbb`` item, in tiles: lanes take one tile each, so an
 #: item is 8 steps of a warp
@@ -50,6 +50,17 @@ BBF_ITEM_WORK = 256
 #: reads a row of X per set bit); a longer tile-row is cut, its items'
 #: partial sums added in a second launch
 DENSE_ITEM_WORK = 2048
+#: columns a ``spmm_dense`` lane takes per pass over its staged entries
+#: (the kernel's template instances); a pass covers 32 · V columns
+DENSE_VECS = (1, 2, 4, 8)
+
+
+def dense_vec(d: int) -> int:
+    """V for an X of ``d`` columns: the least of :data:`DENSE_VECS` whose
+    pass covers ``d``, else the widest. On an H100 at R-MAT scale 21
+    (``tools/spmm_variants.py``) that V was the fastest at D = 32, 64 and
+    1,433, and tied with V = 2 at D = 128 (11.4 ms)."""
+    return next((v for v in DENSE_VECS if 32 * v >= d), DENSE_VECS[-1])
 
 
 def _check_words(name: str, a: torch.Tensor, shape, device) -> None:
@@ -109,6 +120,15 @@ def spmm_dense(m: B2SR, x: torch.Tensor, *,
                items: Optional[WorkItems] = None) -> torch.Tensor:
     """``Y = A · X`` with A's bits as 0/1: ``x`` float32 ``[n_cols, D]``
     (any D, unpadded), ``Y`` float32 ``[n_rows, D]``."""
+    return _spmm_dense(m, x, items, None)
+
+
+def _spmm_dense(m: B2SR, x: torch.Tensor, items: Optional[WorkItems],
+                vec: Optional[int]) -> torch.Tensor:
+    """:func:`spmm_dense` with the kernel instance of ``vec`` columns a
+    lane per pass (``None``: :func:`dense_vec` of D), for measurements
+    that hold the instances against each other; every V gives the same
+    bits."""
     t = m.tile_dim
     common.check_b2sr("a", m, x.device, t)
     if x.dtype != torch.float32:
@@ -117,13 +137,16 @@ def spmm_dense(m: B2SR, x: torch.Tensor, *,
         raise ValueError(f"x shape {tuple(x.shape)} is not [{m.n_cols}, D]")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
+    d = x.shape[1]
+    vec = dense_vec(d) if vec is None else vec
+    if vec not in DENSE_VECS:
+        raise ValueError(f"vec must be one of {DENSE_VECS}, got {vec}")
     if x.device.type != "cuda":
         return ref.spmm_dense(m, x)
     _check_aligned(m)
     if items is None:
         items = work_items(m, DENSE_ITEM_WORK, by_bits=True)
     check_items(items, m.device)
-    d = x.shape[1]
     y = torch.zeros((m.n_rows, d), dtype=torch.float32, device=x.device)
     if items.n_items and d:
         scratch = torch.empty((max(items.n_slots, 1), t, d),
@@ -135,7 +158,7 @@ def spmm_dense(m: B2SR, x: torch.Tensor, *,
                     items.cut_row.data_ptr(), items.cut_first.data_ptr(),
                     items.cut_count.data_ptr(), items.cut_row.numel(),
                     x.data_ptr(), scratch.data_ptr(), y.data_ptr(), m.n_rows,
-                    d, t)
+                    d, t, vec)
         spmm_dense.launches += 1
     return y
 

@@ -1,0 +1,157 @@
+#!/usr/bin/env python3
+"""Time variants of the ``spmm_dense`` kernel on one GPU.
+
+Run from the repository root:
+
+    python3 tools/spmm_variants.py            # R-MAT scale 21, t = 32
+    python3 tools/spmm_variants.py --scale 16
+
+Each variant is a copy of ``src/repro_torch/kernels/spmm/spmm.cu`` with
+some of its tuning constants changed (entries staged per round, and for
+each V the entries whose reads of X a lane issues together and the
+blocks per SM), written to ``build/spmm_variants/`` and built with
+``nvcc`` like the source itself. Every variant runs each V (columns a
+lane takes per pass) on a uniform [0, 1) X of D = 32 (batched PPR's
+width), 64 and 128 (the widths at which ``spmm.dense_vec`` picks V = 2
+and 4) and 1,433 (gcn-cora's input layer), with the work items the
+registry keeps; it is checked against the plain version at D <= 128
+(within 1e-5 of A·|X|) and against the default source at D = 1,433
+(within 1e-4 relative: another stage size adds in other groups), and
+timed (CUDA events, median of 5 at D <= 128, of 1 after a warm-up at
+D = 1,433) in order and in reverse. Prints the card's name and power
+limit, each variant's registers and spill stores and loads per V (from
+``ptxas -v``) and one JSON line of times.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+# X at D = 1,433 and two products of it take 36 GB: leave the allocator
+# room to reuse freed blocks of another size
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+
+SOURCE = ROOT / "src/repro_torch/kernels/spmm/spmm.cu"
+WIDTHS = (32, 64, 128, 1433)
+#: variant name -> {constant: value}: ``kStage`` an int, ``entries`` and
+#: ``blocks`` (``DenseTune``) one value for each of V = 1, 2, 4, 8;
+#: "default" is the source as it is
+VARIANTS = {
+    "default": {},
+    "entries_16": {"entries": (16, 8, 4, 2)},
+    "entries_12": {"entries": (12, 12, 12, 6)},
+    "wide_deeper": {"entries": (8, 8, 10, 6), "blocks": (8, 8, 5, 4)},
+    "stage_512": {"kStage": 512, "blocks": (10, 8, 6, 5)},
+}
+
+
+def variant_source(changes) -> str:
+    text = SOURCE.read_text()
+    for name, value in changes.items():
+        if name == "kStage":
+            head = f"constexpr int {name} = "
+        else:       # a DenseTune member: one value for each V
+            head = f"static constexpr int {name} = "
+            value = "V == 1 ? {} : V == 2 ? {} : V == 4 ? {} : {}".format(
+                *value)
+        start = text.index(head) + len(head)
+        end = text.index(";", start)
+        text = text[:start] + str(value) + text[end:]
+    return text
+
+
+def resources(stem: str, t: int):
+    """Registers and spill stores and loads of the ``spmm_dense`` kernel
+    of tile dim ``t``, by V."""
+    from repro_torch.kernels import common
+    out = {}
+    for name, r in common.kernel_resources(stem).items():
+        hit = re.search(r"spmm_dense_kernelILi(\d+)ELi(\d+)E", name)
+        if hit and int(hit[1]) == t:
+            out[int(hit[2])] = r
+    return out
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--scale", type=int, default=21)
+    scale = parser.parse_args().scale
+    import torch
+    if not torch.cuda.is_available():
+        print("spmm_variants: CUDA is not available", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from repro_torch.core.graphblas import GraphMatrix
+    from repro_torch.data.graphs import rmat_graph
+    from repro_torch.kernels import common
+    from repro_torch.kernels.items import items_for
+    from repro_torch.kernels.spmm import ref, spmm
+
+    out_dir = ROOT / "build" / "spmm_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for name, changes in VARIANTS.items():
+        path = out_dir / f"spmm_{name}.cu"
+        path.write_text(variant_source(changes))
+        paths[name] = path
+    with ThreadPoolExecutor(len(paths)) as pool:
+        list(pool.map(common.load_library, paths.values()))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+
+    n = 1 << scale
+    rows, cols = rmat_graph(n, avg_degree=2 * cs.EDGEFACTOR, seed=cs.SEED)
+    g = GraphMatrix.from_coo(rows, cols, n, n, cs.TILE_DIM,
+                             backend="b2sr_cuda", device="cuda")
+    del rows, cols
+    m = g.b2sr
+    regs = {name: resources(p.stem, m.tile_dim)
+            for name, p in paths.items()}
+    items = items_for(g, spmm.DENSE_ITEM_WORK, by_bits=True)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    xs = {d: torch.rand((n, d), generator=gen, device="cuda")
+          for d in WIDTHS}
+    small = [d for d in WIDTHS if d <= 128]
+    want = {d: ref.spmm_dense(m, xs[d]) for d in small}   # X >= 0: A·|X|
+    spmm.SOURCE = paths["default"]
+    want1433 = spmm.spmm_dense(m, xs[1433], items=items)
+
+    times = {name: {d: {v: [] for v in spmm.DENSE_VECS} for d in WIDTHS}
+             for name in paths}
+    ok = {name: True for name in paths}
+    for order in (list(paths), list(reversed(paths))):
+        for name in order:
+            spmm.SOURCE = paths[name]
+            for v in spmm.DENSE_VECS:
+                for d in small:
+                    y = spmm._spmm_dense(m, xs[d], items, v)
+                    ok[name] &= bool(((y.double() - want[d].double()).abs()
+                                      <= cs.SUM_TOL * want[d].double()).all())
+                y = spmm._spmm_dense(m, xs[1433], items, v)
+                for i in range(0, n, 1 << 16):   # in slices: 12 GB each
+                    a, b = y[i:i + (1 << 16)], want1433[i:i + (1 << 16)]
+                    ok[name] &= bool(((a - b).abs() <= 1e-4 * b.abs()).all())
+                del y
+                for d in WIDTHS:
+                    times[name][d][v].append(cs.event_ms(
+                        lambda d=d, v=v: spmm._spmm_dense(
+                            m, xs[d], items, v),
+                        reps=1 if d == 1433 else 5))
+    spmm.SOURCE = SOURCE
+    print(json.dumps({"scale": scale, "variants": VARIANTS,
+                      "resources": regs, "ok": ok, "times": times}))
+    return 0 if all(ok.values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
