@@ -55,7 +55,10 @@ exits non-zero.
      and on ``csr`` (sorted-row intersection); the counts must be equal,
      and ``bmm_tc`` must equal its plain version on L. Prints whether
      float32, the reference's type, holds the count, and times the
-     kernel, its plain version and the tile-row with the most work alone.
+     kernel (with the plan the triangle row keeps, and building the plan
+     in the call), its plain version and the tile-row with the most work
+     alone; prints L's longest row, the probes and the least merge walk,
+     which the bound counts.
   8. spgemm: Graph500 R-MAT scale 16 (edgefactor 16, seed 0), tile dim
      32: ``g.mxm(g)`` and ``g.mxm(g, mask=g, complement=True)`` on
      ``b2sr_cuda`` (the ``spgemm_bbb`` kernel) and ``csr``: every B2SR
@@ -141,6 +144,11 @@ The kernels phase also holds ``bmm_tc`` and ``spgemm_bbb`` against their
 plain versions on the small graphs at every tile dim (SpGEMM with no
 mask, a keep mask and its complement; TC on L and on a masked A·Aᵀ), and
 the triangle counts and A² patterns of those graphs against SciPy;
+``bmm_tc`` with A, Bᵀ and the mask all different (a directed graph with
+self-loops, repeated edges and a hub row, its transpose and a random
+mask) against the plain version and SciPy, also with items of 64 probes,
+split by the shorter row and not, and with a mask whose every tile the
+plan moves (its kept part empty);
 ``spmm_bbb`` at 1, 33 and 70 sources (W = 1, 2, 3) and frontier
 densities 0.05% and 5%, unmasked, masked and complemented, bit for bit,
 and ``spmm_dense`` at D = 1, 32, 33, 64, 130, 1433 on the small graphs
@@ -148,9 +156,9 @@ and ``spmm_dense`` at D = 1, 32, 33, 64, 130, 1433 on the small graphs
 graph, bit for bit with small-integer X and, with random X, within
 ``|y - y_plain| <= 1e-5 * (A·|X|)``, the same bits on a second launch
 and (D > 32, small graphs) the same bits with every V; ``spmm_bbf``
-(work items of 256 and of 3 tiles) and ``pack_rows`` (float32 and bool
-input) at D = 1, 16, 33, 130 on the small graphs and at D = 16 on the
-full graph, ``pack_dense`` of
+(the default work items, items of 3 tiles and of 5 set bits) and
+``pack_rows`` (float32 and bool input) at D = 1, 7, 16, 33, 130 on the
+small graphs and at D = 16 on the full graph, ``pack_dense`` of
 each small graph's dense adjacency, row- and column-major (row-major also
 equal to the graph's own B2SR tiles), and ``bit_transpose`` of every
 graph's tiles, all bit for bit.
@@ -230,7 +238,7 @@ SPMM_DENSITIES = (0.0005, 0.05)
 SPMM_WIDTHS = (1, 32, 33, 64, 130, 1433)  # spmm_dense checks: D
 SPMM_FULL_WIDTHS = (1, 32, 33, 64)         # the same on the full graph
 BATCH_QUERIES = (140, 60)      # batcher: BFS and PPR queries, duplicates in
-GNN_WIDTHS = (1, 16, 33, 130)  # spmm_bbf / pack_rows checks: D
+GNN_WIDTHS = (1, 7, 16, 33, 130)  # spmm_bbf / pack_rows checks: D
 BOW_WORDS = 18                 # words per node of the bag-of-words features
 GNN_QUERIES = 96               # batcher: gnn_infer queries per model
 BIT_TOL = 1e-5                 # bit-path logits against float64, see phase_gnn
@@ -500,6 +508,62 @@ def check_row_products(cases, rng, max_err, bad) -> int:
             n_checks += 1
             if err:
                 bad.append(["bmm_tc", name, t, case])
+    for t in (4, 8, 16, 32):
+        n_checks += check_tc_directed(t, rng, max_err, bad)
+    return n_checks
+
+
+def check_tc_directed(t: int, rng, max_err, bad) -> int:
+    """bmm_tc with A, Bᵀ and the mask all different: A a directed graph
+    with self-loops, repeated edges and a hub row, Bᵀ = Aᵀ (so B = A) and
+    a random mask, against the plain version and SciPy's Σ M ⊙ (A·A);
+    also with items of 64 probes, with the shorter-row split and with one
+    walk of every Bᵀ row, and on a mask of the non-zero entries of A·A
+    whose A row is shorter than their Bᵀ row (the plan moves every tile:
+    the moved launch alone runs). Returns the number of checks."""
+    import scipy.sparse as sp
+    from repro_torch.core.b2sr import coo_to_b2sr
+    from repro_torch.kernels.bmm import bmm, ref as bmm_ref
+
+    n = 3000
+    r = rng.integers(0, n, 30000)
+    c = rng.integers(0, n, 30000)
+    hub = np.arange(0, n, 2)
+    loops = np.arange(0, n, 7)
+    rows = np.concatenate([r, r[:5000], loops, np.full(hub.size, 5)])
+    cols = np.concatenate([c, c[:5000], loops, hub])
+    mr, mc = rng.integers(0, n, 60000), rng.integers(0, n, 60000)
+    a = coo_to_b2sr(rows, cols, n, n, t, DEVICE)
+    at = coo_to_b2sr(cols, rows, n, n, t, DEVICE)
+    mask = coo_to_b2sr(mr, mc, n, n, t, DEVICE)
+    adj = sp.csr_matrix((np.ones(rows.size), (rows, cols)), shape=(n, n))
+    adj.data[:] = 1.0                    # repeated edges count once
+    msk = sp.csr_matrix((np.ones(mr.size), (mr, mc)), shape=(n, n))
+    msk.data[:] = 1.0
+    prod = (adj @ adj).tocoo()
+    want = int(prod.multiply(msk).sum())
+    # the entries of A·A in tiles whose A row is shorter than the Bᵀ row
+    a_len = (a.tile_row_ptr[1:] - a.tile_row_ptr[:-1]).cpu().numpy()
+    at_len = (at.tile_row_ptr[1:] - at.tile_row_ptr[:-1]).cpu().numpy()
+    short = a_len[prod.row // t] < at_len[prod.col // t]
+    moved = coo_to_b2sr(prod.row[short], prod.col[short], n, n, t, DEVICE)
+    n_checks = 0
+    for case, m, probes, shorter, total in (
+            ("default", mask, bmm.ITEM_PROBES, True, want),
+            ("items_64", mask, 64, True, want),
+            ("items_64_one_walk", mask, 64, False, want),
+            ("every_tile_moved", moved, bmm.ITEM_PROBES, True,
+             int(prod.data[short].sum()))):
+        plan = bmm.tc_plan(a, at, m, probes, shorter)
+        got = int(bmm.bmm_tc(a, at, m, plan=plan))
+        plain = int(bmm_ref.bmm_tc(a, at, m))
+        err = abs(got - plain) + abs(got - total)
+        if case == "every_tile_moved":  # the case moves every tile
+            err += plan.kept.n_tiles + int(m.n_tiles == 0)
+        max_err["bmm_tc"] = max(max_err["bmm_tc"], err)
+        n_checks += 1
+        if err:
+            bad.append(["bmm_tc", "directed", t, case, got, plain, total])
     return n_checks
 
 
@@ -595,9 +659,10 @@ def uint_err(got, want) -> int:
 
 def check_bit_kernels(cases, max_err, bad) -> int:
     """spmm_bbf, pack_rows, pack_dense and bit_transpose against their
-    plain versions, bit for bit: spmm_bbf at D = 1, 16, 33, 130 on the
-    small graphs (with work items of 3 tiles too, so every row merges
-    several items) and at D = 16 on the full graph; pack_rows on [n, D]
+    plain versions, bit for bit: spmm_bbf at D = 1, 7, 16, 33, 130 on the
+    small graphs (with work items of 3 tiles and of 5 set bits too, so
+    every row merges several items) and at D = 16 on the full graph;
+    pack_rows on [n, D]
     float32 and bool inputs at the same widths; pack_dense of each small
     graph's dense adjacency, row- and column-major, also against the
     B2SR's own tiles; bit_transpose of every case's tiles. Returns the
@@ -630,7 +695,9 @@ def check_bit_kernels(cases, max_err, bad) -> int:
                        name, t, d, str(xx.dtype))
             xw = got
             want = ref.spmm_bbf(m, xw, torch.int32)
-            cuts = (None,) if full else (None, spmm.work_items(m, 3))
+            cuts = (None,) if full else (
+                None, spmm.work_items(m, 3),
+                spmm.work_items(m, 5, by_bits=True))
             for items in cuts:
                 got = spmm.spmm_bbf(m, xw, torch.int32, items=items)
                 record("spmm_bbf", int((got - want).abs().max()), name, t,
@@ -693,10 +760,14 @@ def phase_tc(g):
     _, csr_build_s = sync_time(lambda: lt.csr)
     count_csr, wall_csr = sync_time(lambda: triangle_count(gc))
     low = lt.b2sr
-    total, work = bmm.bmm_tc(low, low, low, with_work=True)
+    # the plan the triangle row keeps with L: the mask's tiles split by
+    # the shorter row, and the items (built once, timed apart)
+    plan, plan_s = sync_time(lambda: bmm.tc_plan(low, low, low))
+    total, work, queued = bmm._bmm_tc(low, low, low, True, True, plan)
     plain, plain_s = sync_time(lambda: ref.bmm_tc(low, low, low))
     err = abs(int(total) - int(plain))
-    ms = event_ms(lambda: bmm.bmm_tc(low, low, low), reps=5)
+    ms = event_ms(lambda: bmm.bmm_tc(low, low, low, plan=plan), reps=5)
+    ms_building_plan = event_ms(lambda: bmm.bmm_tc(low, low, low), reps=3)
     ptr = low.tile_row_ptr.long()
     lens = ptr[1:] - ptr[:-1]
     probes = torch.zeros_like(lens).index_add_(
@@ -713,16 +784,28 @@ def phase_tc(g):
         problems.append(f"b2sr_cuda {count} != csr {count_csr}")
     if err:
         problems.append(f"bmm_tc {int(total)} != plain {int(plain)}")
-    bound = bound_row(b2sr_bytes(low) + 8, 3 * int(work))
+    # a few operations per (mask bit, common tile) pair, and the least
+    # merge of the two sorted rows that finds the common tiles
+    walk = bmm.min_walk(low, low, low)
+    bound = bound_row(b2sr_bytes(low) + 8, 3 * int(work) + walk)
     emit({"phase": "tc", "ok": not problems, "problems": problems,
           "triangles": count, "float32_exact": float(np.float32(count))
           == count, "launches": launches,
           "lower": {"nnz": low.nnz, "n_tiles": low.n_tiles,
                     "max_tiles_per_row": int(lens.max()),
-                    "mask_bit_tile_pairs": int(work)},
+                    "probes": int(probes.sum()),
+                    "mask_bit_tile_pairs": int(work), "min_walk": walk,
+                    "queued_entries": int(queued)},
           "split_s": split_s, "pack_s": pack_s, "csr_build_s": csr_build_s,
           "wall_s": {"b2sr_cuda": [wall, wall2], "csr": wall_csr},
-          "kernel_ms": ms, "plain_s": plain_s, "heavy_rows": heavy,
+          "kernel_ms": ms, "kernel_building_plan_ms": ms_building_plan,
+          "plan_s": plan_s, "plan": {
+              "kept_tiles": plan.kept.n_tiles,
+              "moved_tiles": 0 if plan.moved is None else plan.moved.n_tiles,
+              "items": int(plan.kept_items[0].numel()) + (
+                  0 if plan.moved is None
+                  else int(plan.moved_items[0].numel()))},
+          "plain_s": plain_s, "heavy_rows": heavy,
           **bound})
     if problems:
         fail("tc", "; ".join(problems))

@@ -104,6 +104,8 @@ class LowerTriangle:
         self._ell: Optional[B2SREll] = None
         self._ell_t: Optional[B2SREll] = None
         self._buckets: Optional[B2SRBucketedEll] = None
+        #: what a backend's triangle row derives from L once and keeps
+        self.cache: dict = {}
         if build_b2sr:
             self.b2sr
 

@@ -22,6 +22,9 @@ import torch
 
 from repro_torch.core.words import popcount
 
+#: tiles whose set bits a cut by bits counts at a time
+_POPCOUNT_CHUNK = 1 << 20
+
 
 @dataclasses.dataclass(frozen=True)
 class WorkItems:
@@ -59,8 +62,11 @@ def cut_rows(tile_row_ptr: torch.Tensor, bit_tiles: torch.Tensor,
     counts = (tile_row_ptr[1:] - tile_row_ptr[:-1]).to(torch.int64)
     rows = torch.repeat_interleave(torch.arange(n_tile_rows, device=dev),
                                    counts)
-    if by_bits:
-        work = popcount(bit_tiles).sum(1, dtype=torch.int64) + 1
+    if by_bits:     # in chunks: the popcount's temporaries are 4 B a word
+        work = torch.ones(n_tiles, dtype=torch.int64, device=dev)
+        for s in range(0, n_tiles, _POPCOUNT_CHUNK):
+            work[s:s + _POPCOUNT_CHUNK] += popcount(
+                bit_tiles[s:s + _POPCOUNT_CHUNK]).sum(1, dtype=torch.int64)
     else:
         work = torch.ones(n_tiles, dtype=torch.int64, device=dev)
     done = torch.cumsum(work, 0) - work              # before each tile

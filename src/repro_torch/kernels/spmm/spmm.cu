@@ -100,28 +100,44 @@
 // XW uint32[n_tile_cols, D] (a BitMatrix: word [c, j] packs nodes
 // c*t .. c*t + t-1 of feature j) and Y int32[n_tile_rows * t, D], any
 // D >= 1, unpadded. The TPU kernel gathered XW rows per K block and
-// summed popcounts over a [block_r, block_k, t, block_d] slab in VMEM;
-// here a warp takes a work item (a run of at most 256 tiles of one
-// tile-row). Lanes go over C = min(32, next power of two >= D) feature
-// columns, and the warp's 32 / C lane groups over the item's tiles: at
-// D = 16 two groups each take every other tile, so no lane idles. Per
-// tile a lane reads one word of XW (a group reads a row of D words,
-// coalesced; XW is 4.2 MB at scale 21, D = 16, and stays in L2) and the
-// tile's t words (16-byte loads, the same address across the group),
-// and adds popcount(word_r & x) into accumulator r, in shared memory,
-// for each non-zero word r only: a tile holds about 2 set bits. At the
-// end the groups' accumulators are summed and a lane per (r, column)
-// stores the count. The counts are integers, so the items of a cut
-// tile-row merge with atomicAdd into Y (zeroed by the wrapper): the
-// result does not depend on the order, and a row that is not cut is
-// stored directly. The wrapper casts Y to the caller's dtype once.
+// summed popcounts over a [block_r, block_k, t, block_d] slab in VMEM.
+// Here a warp takes a work item (a run of tiles of one tile-row) in two
+// stages, as spmm_dense does, without its sort (integer counts need
+// none):
+//   1. Walk and stage. The warp reads its item's tiles 32 at a time,
+//      coalesced: lane l loads 16-byte vectors l, l + 32, ... of the 32
+//      tiles' t * 32 words, so every warp load covers 512 contiguous
+//      bytes and a lane holds t / 4 loads in flight. For each round of
+//      32 vectors four votes (one per word of a vector) place every
+//      non-zero word in a per-warp stage in shared memory, as the entry
+//      (col(k) * t + r, word): an R-MAT tile at t = 32 holds about 1.9
+//      set bits in 1,024, so about two entries a tile.
+//   2. Drain. Lanes go over C = min(32, next power of two >= D) feature
+//      columns and the warp's 32 / C lane groups over the staged
+//      entries (at D = 16 the two half-warps take alternate entries).
+//      Per entry a lane reads one word of XW (a group reads a row of D
+//      words, coalesced; XW is 4.2 MB at scale 21, D = 16, and stays in
+//      L2), kBbfUnroll entries' reads issued before their adds, and adds
+//      popcount(word & x) into its own accumulator acc[r][lane] in
+//      shared memory: each group has its own columns there, so no two
+//      lanes touch one word and no atomics are needed.
+// The stage is drained when the next round might not fit, and at the end
+// of the item. For D <= 32 the accumulators hold the item's sums across
+// drains and are written once at the end; for D > 32 every drain makes
+// one pass over the staged entries per 32 columns and adds each pass's
+// sums into Y, so the tiles are read once whatever D is. At the end the
+// groups' accumulators are
+// summed and a lane per (r, column) writes the count. The counts are
+// integers, so several writes to one row (the items of a cut tile-row,
+// the drains of a wide item) merge with atomicAdd into Y (zeroed by the
+// wrapper) whatever their order; a row written once is stored directly.
+// The wrapper casts Y to the caller's dtype once.
 //
 // Bound: device-memory bytes. Counted once: row pointers, column
 // indices, every tile, XW and Y; at R-MAT scale 21, t = 32, D = 16 that
 // is 4.23 GB of tiles, 0.13 GB of column indices and 0.13 GB of Y, about
-// 1.34 ms at 3.35 TB/s, against one AND, popcount and add per (tile
-// word, column): 1.7e10 at D = 16, 0.25 ms at 67 TOP/s; the kernel
-// skips the zero words, which are most of them.
+// 1.34 ms at 3.35 TB/s, against one AND, popcount and add per (non-zero
+// tile word, column): about 3e9 at D = 16, 0.04 ms at 67 TOP/s.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -152,6 +168,21 @@ constexpr int kWordChunk = 32;
 constexpr int kDenseWarps = 4;
 constexpr int kDenseThreads = 32 * kDenseWarps;
 constexpr int kStage = 640;
+
+// spmm_bbf: warps a block; entries a warp stages (8 bytes each, with
+// t * 32 accumulators of 4 bytes: 8 KB a warp at t = 32); entries a lane
+// group loads before their adds. On an H100 at R-MAT scale 21, D = 16
+// (tools/spmm_variants.py --kernel bbf, items of 256 tiles): stages of
+// 128, 256 and 512 entries took 5.20, 4.56 and 3.46 ms (a stage that
+// overflows is drained more often, and for D > 32 adds into Y more
+// often: 60.0, 41.0 and 19.9 ms at D = 130); 2 and 8 entries in flight
+// 5.39 and 8.37 (with spills); one accumulator set for the warp, added
+// into with shared-memory atomics, 5.33 (4.00 at stage 512, against
+// 3.45 for a set per lane group); 8 warps a block 4.98.
+constexpr int kBbfWarps = 4;
+constexpr int kBbfThreads = 32 * kBbfWarps;
+constexpr int kBbfStage = 512;
+constexpr int kBbfUnroll = 4;
 
 template <int V>
 struct DenseTune {
@@ -505,8 +536,9 @@ spmm_dense_merge_kernel(const int32_t* __restrict__ cut_row,
   y[yr * D + d] = s;
 }
 
+// One warp per item (see the head of this file).
 template <int T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBbfThreads)
 spmm_bbf_kernel(const int32_t* __restrict__ col_idx,
                 const uint32_t* __restrict__ tiles,
                 const int32_t* __restrict__ item_row,
@@ -514,12 +546,18 @@ spmm_bbf_kernel(const int32_t* __restrict__ col_idx,
                 const int32_t* __restrict__ item_slot,
                 const uint32_t* __restrict__ xw, int32_t* __restrict__ y,
                 int n_items, int D, int C) {
-  __shared__ int32_t acc_all[kWarps][T * 32];
+  constexpr int U = kBbfUnroll;
+  constexpr int kVecs = T / 4;  // 16-byte vectors a lane loads per batch
+  __shared__ int32_t acc_all[kBbfWarps][T * 32];
+  __shared__ uint32_t key_all[kBbfWarps][kBbfStage];   // col * T + r
+  __shared__ uint32_t word_all[kBbfWarps][kBbfStage];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int item = blockIdx.x * kWarps + warp;
+  const int item = blockIdx.x * kBbfWarps + warp;
   if (item >= n_items) return;  // uniform across the warp
   int32_t* acc = acc_all[warp];
+  uint32_t* s_key = key_all[warp];
+  uint32_t* s_word = word_all[warp];
   const int row = item_row[item];
   const int k0 = item_begin[item];
   const int k1 = item_begin[item + 1];
@@ -527,26 +565,40 @@ spmm_bbf_kernel(const int32_t* __restrict__ col_idx,
   const int groups = 32 / C;
   const int group = lane / C;
   const int c = lane - group * C;
-  for (int d0 = 0; d0 < D; d0 += C) {
-    const int j = d0 + c;
-    const bool live = j < D;
+  const bool one_chunk = D <= C;
+  int fill = 0;          // entries staged
+  bool written = false;  // this item has added to Y already
+
+  auto zero_acc = [&]() {
 #pragma unroll
     for (int r = 0; r < T; ++r) acc[r * 32 + lane] = 0;
-    for (int k = k0 + group; k < k1; k += groups) {
-      const uint32_t x =
-          live ? __ldg(xw + static_cast<int64_t>(col_idx[k]) * D + j) : 0u;
-      const uint4* v =
-          reinterpret_cast<const uint4*>(tiles + static_cast<int64_t>(k) * T);
+    __syncwarp();
+  };
+  // adds the staged entries' counts for columns d0 .. d0 + C - 1
+  auto drain = [&](int d0) {
+    const int j = d0 + c;
+    const bool live = j < D;
+    for (int e0 = group; e0 < fill; e0 += groups * U) {
+      uint32_t x[U], w[U], key[U];
 #pragma unroll
-      for (int q = 0; q < T / 4; ++q) {
-        const uint4 w4 = __ldg(v + q);
-        const uint32_t w[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (w[i]) acc[(4 * q + i) * 32 + lane] += __popc(w[i] & x);
+      for (int u = 0; u < U; ++u) {
+        const int e = e0 + groups * u;
+        const bool ok = e < fill;
+        key[u] = ok ? s_key[e] : 0u;
+        w[u] = ok ? s_word[e] : 0u;
+        x[u] = ok && live
+                   ? __ldg(xw + static_cast<int64_t>(key[u] / T) * D + j)
+                   : 0u;
       }
+#pragma unroll
+      for (int u = 0; u < U; ++u)  // a lane's own accumulator: no atomics
+        if (e0 + groups * u < fill)
+          acc[(key[u] % T) * 32 + lane] += __popc(w[u] & x[u]);
     }
     __syncwarp();
+  };
+  // the accumulators' counts for columns d0 .. d0 + C - 1 into Y
+  auto write = [&](int d0, bool atomic) {
     for (int e = lane; e < T * C; e += 32) {
       const int r = e / C;
       const int cc = e - r * C;
@@ -555,11 +607,74 @@ spmm_bbf_kernel(const int32_t* __restrict__ col_idx,
       for (int g = 0; g < groups; ++g) s += acc[r * 32 + g * C + cc];
       if (s == 0) continue;  // Y is zeroed
       int32_t* o = y + (static_cast<int64_t>(row) * T + r) * D + d0 + cc;
-      if (cut) atomicAdd(o, s);
+      if (atomic) atomicAdd(o, s);
       else *o = s;
     }
-    __syncwarp();  // acc is read before the next chunk clears it
+    __syncwarp();  // acc is read before it is cleared again
+  };
+  // drains the stage; the item's last call writes what is left
+  auto flush = [&](bool last) {
+    __syncwarp();  // the staged entries are visible to every lane
+    if (one_chunk) {
+      drain(0);
+      if (last) write(0, cut);
+    } else {
+      for (int d0 = 0; d0 < D; d0 += C) {
+        zero_acc();
+        drain(d0);
+        write(d0, cut || written || !last);
+      }
+      written = true;
+    }
+    fill = 0;
+  };
+
+  if (one_chunk) zero_acc();
+  for (int kb = k0; kb < k1; kb += 32) {
+    const int nt = min(32, k1 - kb);  // tiles in this batch
+    const int col = lane < nt ? __ldg(col_idx + kb + lane) : 0;
+    const uint4* base =
+        reinterpret_cast<const uint4*>(tiles + static_cast<int64_t>(kb) * T);
+    uint4 v[kVecs];
+#pragma unroll
+    for (int q = 0; q < kVecs; ++q) {
+      const int i = lane + 32 * q;  // vector i holds words 4i .. 4i + 3
+      v[q] = i < nt * kVecs ? __ldg(base + i) : make_uint4(0, 0, 0, 0);
+    }
+    const uint32_t below = (1u << lane) - 1u;  // the lanes before this one
+#pragma unroll
+    for (int q = 0; q < kVecs; ++q) {
+      const int i = lane + 32 * q;
+      const uint32_t w[4] = {v[q].x, v[q].y, v[q].z, v[q].w};
+      // the round's entries go in order of (word b of the vector, lane):
+      // four votes place them, with no chain of shuffles
+      uint32_t nz[4];
+      int total = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        nz[b] = __ballot_sync(kFull, w[b] != 0);
+        total += __popc(nz[b]);
+      }
+      // the column index of the tile this vector lies in
+      const uint32_t key0 =
+          static_cast<uint32_t>(__shfl_sync(kFull, col, i / kVecs)) * T +
+          (4 * i) % T;
+      if (total == 0) continue;  // uniform
+      if (fill + total > kBbfStage) flush(false);
+      int base = fill;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        if (w[b]) {
+          const int off = base + __popc(nz[b] & below);
+          s_key[off] = key0 + b;
+          s_word[off] = w[b];
+        }
+        base += __popc(nz[b]);
+      }
+      fill += total;
+    }
   }
+  flush(true);
 }
 
 using BbbKernel = void (*)(const int32_t*, const uint32_t*, const int32_t*,
@@ -715,7 +830,7 @@ int spmm_bbf(const void* col_idx, const void* tiles, const void* item_row,
   if (n_items <= 0) return 0;
   int C = 1;
   while (C < D && C < 32) C *= 2;
-  k<<<blocks_for(n_items, kWarps), kThreads, 0,
+  k<<<blocks_for(n_items, kBbfWarps), kBbfThreads, 0,
       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(col_idx), static_cast<const uint32_t*>(tiles),
       static_cast<const int32_t*>(item_row),

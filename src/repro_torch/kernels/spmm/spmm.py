@@ -43,8 +43,11 @@ _BBF_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 2 + [_INT] * 2 + [_PTR]
 #: work of a ``spmm_bbb`` item, in tiles: lanes take one tile each, so an
 #: item is 8 steps of a warp
 BBB_ITEM_WORK = 256
-#: work of a ``spmm_bbf`` item, in tiles: a lane group reads a tile's
-#: words and one word of XW per tile, whatever its set bits
+#: work of a ``spmm_bbf`` item, in tiles: the cut ``bmv_bbf`` keeps, so
+#: the graph holds one cut for both. On an H100 at R-MAT scale 21, D = 16
+#: (``tools/spmm_variants.py --kernel bbf``) it took 3.36-3.41 ms a
+#: launch; items of 768 set bits took 3.19-3.23, but that cut costs a
+#: popcount pass over the tiles (0.14 s) that ~800 launches pay back
 BBF_ITEM_WORK = 256
 #: work of a ``spmm_dense`` item, in set bits plus one per tile (the warp
 #: reads a row of X per set bit); a longer tile-row is cut, its items'

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time variants of the ``spmm_dense`` kernel on one GPU.
+"""Time variants of the ``spmm_dense`` or ``spmm_bbf`` kernel on one GPU.
 
 Run from the repository root:
 
-    python3 tools/spmm_variants.py            # R-MAT scale 21, t = 32
+    python3 tools/spmm_variants.py            # spmm_dense, R-MAT scale 21
     python3 tools/spmm_variants.py --scale 16
+    python3 tools/spmm_variants.py --kernel bbf
 
 Each variant is a copy of ``src/repro_torch/kernels/spmm/spmm.cu`` with
 some of its tuning constants changed (entries staged per round, and for
@@ -21,6 +22,13 @@ timed (CUDA events, median of 5 at D <= 128, of 1 after a warm-up at
 D = 1,433) in order and in reverse. Prints the card's name and power
 limit, each variant's registers and spill stores and loads per V (from
 ``ptxas -v``) and one JSON line of times.
+
+``--kernel bbf`` does the same for ``spmm_bbf``: each variant of its
+constants (entries staged a warp, entries a lane group loads before its
+adds) runs with each work-item cut of
+:data:`BBF_CUTS` on random ``BitMatrix`` words (half the bits set) of
+D = 16 (gcn-cora's hidden width) and 130, checked bit for bit against
+the plain version and timed (median of 5) in order and in reverse.
 """
 
 from __future__ import annotations
@@ -54,10 +62,20 @@ VARIANTS = {
 }
 
 
+#: spmm_bbf variants: {constant: value} of its ``constexpr int`` constants
+BBF_VARIANTS = {
+    "default": {},
+    "stage_384": {"kBbfStage": 384},
+}
+#: spmm_bbf work-item cuts: (budget, by_bits)
+BBF_CUTS = ((256, False), (512, True), (768, True))
+BBF_WIDTHS = (16, 130)
+
+
 def variant_source(changes) -> str:
     text = SOURCE.read_text()
     for name, value in changes.items():
-        if name == "kStage":
+        if name.startswith("k"):       # a constexpr int of the file
             head = f"constexpr int {name} = "
         else:       # a DenseTune member: one value for each V
             head = f"static constexpr int {name} = "
@@ -81,26 +99,14 @@ def resources(stem: str, t: int):
     return out
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--scale", type=int, default=21)
-    scale = parser.parse_args().scale
-    import torch
-    if not torch.cuda.is_available():
-        print("spmm_variants: CUDA is not available", file=sys.stderr)
-        return 1
-    import chip_smoke as cs
-    from repro_torch.core.graphblas import GraphMatrix
-    from repro_torch.data.graphs import rmat_graph
+def build(variants, stem: str):
+    """Write and build each variant's source; print the card's line."""
     from repro_torch.kernels import common
-    from repro_torch.kernels.items import items_for
-    from repro_torch.kernels.spmm import ref, spmm
-
     out_dir = ROOT / "build" / "spmm_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     paths = {}
-    for name, changes in VARIANTS.items():
-        path = out_dir / f"spmm_{name}.cu"
+    for name, changes in variants.items():
+        path = out_dir / f"{stem}_{name}.cu"
         path.write_text(variant_source(changes))
         paths[name] = path
     with ThreadPoolExecutor(len(paths)) as pool:
@@ -108,12 +114,84 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    return paths
 
+
+def rmat(scale: int):
+    import chip_smoke as cs
+    from repro_torch.core.graphblas import GraphMatrix
+    from repro_torch.data.graphs import rmat_graph
     n = 1 << scale
     rows, cols = rmat_graph(n, avg_degree=2 * cs.EDGEFACTOR, seed=cs.SEED)
-    g = GraphMatrix.from_coo(rows, cols, n, n, cs.TILE_DIM,
-                             backend="b2sr_cuda", device="cuda")
-    del rows, cols
+    return GraphMatrix.from_coo(rows, cols, n, n, cs.TILE_DIM,
+                                backend="b2sr_cuda", device="cuda")
+
+
+def bbf_main(scale: int) -> int:
+    """The spmm_bbf variants (see the module's docstring)."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.core.b2sr import pack_bitmatrix
+    from repro_torch.kernels import common
+    from repro_torch.kernels.items import work_items
+    from repro_torch.kernels.spmm import ref, spmm
+
+    paths = build(BBF_VARIANTS, "bbf")
+    g = rmat(scale)
+    m = g.b2sr
+    regs = {}
+    for name, path in paths.items():
+        for kname, r in common.kernel_resources(path.stem).items():
+            if re.search(r"spmm_bbf_kernelILi32E", kname):
+                regs[name] = r
+    cuts = {f"{'bits' if by_bits else 'tiles'}_{budget}":
+            work_items(m, budget, by_bits) for budget, by_bits in BBF_CUTS}
+    n_items = {k: c.n_items for k, c in cuts.items()}
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    xws = {d: pack_bitmatrix(torch.rand((g.n_cols, d), generator=gen,
+                                        device="cuda") < 0.5, m.tile_dim)
+           for d in BBF_WIDTHS}
+    want = {d: ref.spmm_bbf(m, xws[d], torch.int32) for d in BBF_WIDTHS}
+    times = {name: {d: {k: [] for k in cuts} for d in BBF_WIDTHS}
+             for name in paths}
+    ok = {name: True for name in paths}
+    for order in (list(paths), list(reversed(paths))):
+        for name in order:
+            spmm.SOURCE = paths[name]
+            for d in BBF_WIDTHS:
+                for key, items in cuts.items():
+                    y = spmm.spmm_bbf(m, xws[d], torch.int32, items=items)
+                    ok[name] &= bool(torch.equal(y, want[d]))
+                    times[name][d][key].append(cs.event_ms(
+                        lambda d=d, items=items: spmm.spmm_bbf(
+                            m, xws[d], torch.int32, items=items), reps=5))
+    spmm.SOURCE = SOURCE
+    print(json.dumps({"kernel": "spmm_bbf", "scale": scale,
+                      "variants": BBF_VARIANTS, "n_items": n_items,
+                      "resources": regs, "ok": ok, "times": times}))
+    return 0 if all(ok.values()) else 1
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--scale", type=int, default=21)
+    parser.add_argument("--kernel", choices=("dense", "bbf"),
+                        default="dense")
+    args = parser.parse_args()
+    scale = args.scale
+    import torch
+    if not torch.cuda.is_available():
+        print("spmm_variants: CUDA is not available", file=sys.stderr)
+        return 1
+    if args.kernel == "bbf":
+        return bbf_main(scale)
+    import chip_smoke as cs
+    from repro_torch.kernels.items import items_for
+    from repro_torch.kernels.spmm import ref, spmm
+
+    paths = build(VARIANTS, "spmm")
+    n = 1 << scale
+    g = rmat(scale)
     m = g.b2sr
     regs = {name: resources(p.stem, m.tile_dim)
             for name, p in paths.items()}
