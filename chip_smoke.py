@@ -63,12 +63,21 @@ exits non-zero.
      32: ``g.mxm(g)`` and ``g.mxm(g, mask=g, complement=True)`` on
      ``b2sr_cuda`` (the ``spgemm_bbb`` kernel) and ``csr``: every B2SR
      array equal, and equal to the kernel's plain version. Times the
-     kernel beside one ``torch.sparse.mm`` of the float CSR by itself
-     (cuSPARSE, the yardstick; the port never calls it on this path) and
-     prints the phase's peak device memory.
+     kernel, and its window, count and fill launches (each row list's)
+     apart, beside one
+     ``torch.sparse.mm`` of the float CSR by itself (cuSPARSE, the
+     yardstick; the port never calls it on this path); prints the work
+     counts (tile pairs, ORs, (non-zero word, tile) pairs, the pairs whose
+     occupancies meet and the words of B they read) and the phase's peak
+     device memory.
   9. khop: a road grid of side 2048 (n = 4,194,304), tile dim 32:
      ``khop_reachability(g, 3)`` on ``b2sr_cuda`` and ``csr``; the reach
-     matrices' B2SR arrays and ``n_iterations`` must be equal.
+     matrices' B2SR arrays and ``n_iterations`` must be equal. The
+     first call's wall beside two more calls', one after
+     ``torch.cuda.empty_cache()``, and the host's time by op of a warm
+     and a cold call. One hop's product A²⟨¬A⟩ alone: equal to the plain
+     version, timed (and its launches apart) beside its plain version,
+     its bound and its work counts.
      In phases 2-9 the kernels' launch counts are set to 0 just before
      the phase's ``b2sr_cuda`` runs and read just after; a kernel of the
      phase that never launched fails the run.
@@ -149,8 +158,11 @@ self-loops, repeated edges and a hub row, its transpose and a random
 mask) against the plain version and SciPy, also with items of 64 probes,
 split by the shorter row and not, and with a mask whose every tile the
 plan moves (its kept part empty);
-``spmm_bbb`` at 1, 33 and 70 sources (W = 1, 2, 3) and frontier
-densities 0.05% and 5%, unmasked, masked and complemented, bit for bit,
+``spgemm_bbb`` also with blocks of 64 threads and rounds of 3 slots (the
+rows of C built in rounds); ``spmm_bbb`` at 1, 33 and 70 sources (W = 1,
+2, 3; on the small graphs also 1,056, W = 33, and with items of 3
+tiles) and frontier densities 0.05% and 5%, unmasked, masked and
+complemented, bit for bit,
 and ``spmm_dense`` at D = 1, 32, 33, 64, 130, 1433 on the small graphs
 (with work items of 3 tiles too) and at D = 1, 32, 33, 64 on the full
 graph, bit for bit with small-integer X and, with random X, within
@@ -234,6 +246,7 @@ MS_SOURCES = 64                # msbfs / mskhop / ms_sssp batch
 PPR_SEEDS = 32                 # batched PPR batch
 MSKHOP_K = 2
 SPMM_SOURCES = (1, 33, 70)     # spmm_bbb checks: W = 1, 2, 3 source words
+SPMM_WIDE = 1056               # and W = 33 on the small graphs
 SPMM_DENSITIES = (0.0005, 0.05)
 SPMM_WIDTHS = (1, 32, 33, 64, 130, 1433)  # spmm_dense checks: D
 SPMM_FULL_WIDTHS = (1, 32, 33, 64)         # the same on the full graph
@@ -485,8 +498,16 @@ def check_row_products(cases, rng, max_err, bad) -> int:
         mask = coo_to_b2sr(a2.row[sel], a2.col[sel], n, n, t, DEVICE)
         for mk, comp in ((None, False), (mask, False), (mask, True)):
             got = spgemm.spgemm_bbb(m, m, mk, complement=comp)
-            err = b2sr_mismatch(got, spgemm_ref.spgemm_bbb(
-                m, m, mk, complement=comp))
+            want = spgemm_ref.spgemm_bbb(m, m, mk, complement=comp)
+            err = b2sr_mismatch(got, want)
+            # every row heavy, none, or those of 64 pairs and more; blocks
+            # of 2 warps (light: 1), rounds of 3 slots (light: 2): rows
+            # built in rounds
+            for heavy, threads, slots in ((0, (64, 64), (3, 3)),
+                                          (spgemm.NEVER, (64, 64), (3, 3)),
+                                          (64, (64, 32), (3, 2))):
+                err += b2sr_mismatch(spgemm._spgemm_bbb(
+                    m, m, mk, comp, heavy, threads, slots), want)
             if mk is None:                       # SciPy's A² pattern
                 err += b2sr_mismatch(got, coo_to_b2sr(
                     a2.row, a2.col, n, n, t, DEVICE))
@@ -587,14 +608,20 @@ def check_spmm(cases, max_err, bad):
     n_checks, worst = 0, 0.0
     for name, g in cases:
         m, t = g.b2sr, g.tile_dim
-        for s in SPMM_SOURCES:
+        full = name == "rmat_full"
+        # on the small graphs also 33 source words, and items of 3 tiles
+        sources = SPMM_SOURCES if full else SPMM_SOURCES + (SPMM_WIDE,)
+        bbb_cuts = (None,) if full else (None, spmm.work_items(m, 3))
+        for s in sources:
             mk = pack_frontier_matrix(rand(g.n_rows, s) < 0.5, t, g.n_rows)
             for dens in SPMM_DENSITIES:
                 f = pack_frontier_matrix(rand(g.n_cols, s) < dens, t,
                                          g.n_cols)
                 plain = ref.spmm_bbb(m, f)
-                for mask, comp in ((None, True), (mk, True), (mk, False)):
-                    got = spmm.spmm_bbb(m, f, mask, complement=comp)
+                for (mask, comp), items in itertools.product(
+                        ((None, True), (mk, True), (mk, False)), bbb_cuts):
+                    got = spmm.spmm_bbb(m, f, mask, complement=comp,
+                                        items=items)
                     want = (plain if mask is None
                             else plain & (~mk if comp else mk))
                     sync()
@@ -603,8 +630,7 @@ def check_spmm(cases, max_err, bad):
                     n_checks += 1
                     if err:
                         bad.append(["spmm_bbb", name, t, s, dens,
-                                    mask is not None, comp])
-        full = name == "rmat_full"
+                                    mask is not None, comp, items is None])
         # items of 3 tiles cut every row of more than 3 tiles; on the
         # full graph their scratch would take n_slots · t · D floats
         cuts = (None,) if full else (None, spmm.work_items(m, 3))
@@ -826,6 +852,56 @@ def spgemm_ops(a, b) -> int:
     return int((popcount(a.bit_tiles).sum(1).long() * lens).sum())
 
 
+def spgemm_work(a, b):
+    """The work counts of A·B: tile pairs (A(I,X), B(X,J)); the ORs the
+    word algorithm needs (set bits of A(I,X) times the tiles of B's row
+    X); (non-zero word of A(I,X), tile of B's row X) pairs; the pairs
+    whose A column occupancy meets B's row occupancy, which the kernel
+    works on, and the words of B they read (set bits of the two
+    occupancies' AND)."""
+    import torch
+    from repro_torch.core import csr as csr_mod
+    from repro_torch.core.words import popcount
+    t = a.tile_dim
+    ptr = b.tile_row_ptr.long()
+    lens = (ptr[1:] - ptr[:-1])[a.tile_col_idx.long()]
+    acol = torch.zeros(a.n_tiles, dtype=torch.int32, device=a.device)
+    for r in range(t):
+        acol |= a.bit_tiles[:, r]
+    occ = torch.zeros(b.n_tiles, dtype=torch.int32, device=b.device)
+    for r in range(t):
+        occ |= (b.bit_tiles[:, r] != 0).int() << r
+    rows_set = (a.bit_tiles != 0).sum(1).long()
+    meet = reads = 0
+    for k0, k1 in csr_mod.work_chunks(lens):
+        rep, off = csr_mod.expand(lens[k0:k1], k0)
+        q = ptr[a.tile_col_idx[rep].long()] + off
+        m = acol[rep] & occ[q]
+        meet += int((m != 0).sum())
+        reads += int(popcount(m).sum(dtype=torch.int64))
+        del rep, off, q, m
+    return {"tile_pairs": int(lens.sum()), "ors": spgemm_ops(a, b),
+            "set_row_pairs": int((rows_set * lens).sum()),
+            "meeting_pairs": meet, "b_word_reads": reads}
+
+
+def spgemm_passes(a, b, mk, comp, reps: int = 3):
+    """Median ms of the window, count and fill launches of spgemm_bbb
+    (CUDA events around each) and the shape each took (threads, and the
+    fill's slots a round and tiles of A a run)."""
+    from repro_torch.kernels.spgemm import spgemm
+    times, shapes = {}, {}
+    for _ in range(reps + 1):                # the first warms up
+        events = []
+        spgemm._spgemm_bbb(a, b, mk, comp, events=events)
+        sync()
+        for name, start, end, shape in events:
+            times.setdefault(name, []).append(start.elapsed_time(end))
+            shapes[name] = list(shape)
+    return {name: {"ms": statistics.median(v[1:]), "shape": shapes[name]}
+            for name, v in times.items()}
+
+
 def cusparse_spgemm_ms(csr):
     """cuSPARSE's SpGEMM (``torch.sparse.mm``) of the float CSR by itself,
     one call per row chunk of at most ``csr.CHUNK_WEDGES`` wedges (the
@@ -880,18 +956,21 @@ def phase_spgemm():
             "ms": event_ms(lambda: spgemm.spgemm_bbb(a, a, mk,
                                                      complement=comp),
                            reps=5),
+            "passes": spgemm_passes(a, a, mk, comp),
             "plain_ms": 1e3 * plain_s,
             **bound_row(b2sr_bytes(a, got), spgemm_ops(a, a))}
     peak = torch.cuda.max_memory_allocated()
     del res
     torch.cuda.empty_cache()
+    work = spgemm_work(a, a)
     library_ms, n_chunks = cusparse_spgemm_ms(g.csr)
     emit({"phase": "spgemm", "ok": not problems, "problems": problems,
           "scale": SPGEMM_SCALE, "directed_edges": len(rows),
           "n_tiles": a.n_tiles, "launches": launches,
           "wall_s": {f"{be}/{k}": wall[be, k] for be in ("b2sr_cuda", "csr")
                      for k in cases},
-          "kernel": timing, "cusparse_spgemm_ms": library_ms,
+          "kernel": timing, "work": work,
+          "cusparse_spgemm_ms": library_ms,
           "cusparse_row_chunks": n_chunks, "peak_device_bytes": peak})
     if problems:
         fail("spgemm", "; ".join(problems))
@@ -901,7 +980,41 @@ def phase_spgemm():
             "library_ms": library_ms,
             "csr_row_ms": 1e3 * wall["csr", "A2"],
             "launches": launches["spgemm_bbb"], "max_abs_err": err,
-            "inputs": f"A·A of R-MAT scale {SPGEMM_SCALE}, no mask"}
+            "inputs": f"A·A of R-MAT scale {SPGEMM_SCALE}, no mask; road_hop_*: "
+                      f"one k-hop product A²<¬A> of the road grid of side "
+                      f"{ROAD_SIDE}"}
+
+
+def khop_calls(g):
+    """Walls of the k-hop calls after the phase's first: two more, then
+    one after ``torch.cuda.empty_cache()`` (the caching allocator takes
+    its blocks anew with cudaMalloc); and for a warm call and a call
+    after ``empty_cache``, the host's time by op (torch.profiler, self CPU
+    time, the ten largest: the waits at the host syncs show as
+    ``cudaStreamSynchronize``, the allocator's as ``cudaMalloc``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.algorithms import khop_reachability
+
+    def run():
+        return khop_reachability(g, KHOP_K)
+
+    out = {"repeat_wall_s": [sync_time(run)[1] for _ in range(2)]}
+    torch.cuda.empty_cache()
+    out["after_empty_cache_wall_s"] = sync_time(run)[1]
+    for name in ("warm", "after_empty_cache"):
+        if name != "warm":
+            torch.cuda.empty_cache()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = sync_time(run)
+        ops = sorted(prof.key_averages(),
+                     key=lambda e: -e.self_cpu_time_total)
+        out[f"host_{name}"] = {
+            "wall_ms": 1e3 * wall,
+            "top_self_cpu_ms": [[e.key, e.self_cpu_time_total / 1e3,
+                                 e.count] for e in ops[:10]]}
+    return out
 
 
 def phase_khop():
@@ -925,19 +1038,29 @@ def phase_khop():
                         f"{b.n_iterations}")
     if b2sr_mismatch(a.reach.b2sr, b.reach.b2sr):
         problems.append("reach != csr")
+    calls = khop_calls(g)
     m = g.b2sr                                   # one hop: A²⟨¬A⟩
-    hop_err = b2sr_mismatch(spgemm.spgemm_bbb(m, m, m, complement=True),
-                            ref.spgemm_bbb(m, m, m, complement=True))
+    hop = spgemm.spgemm_bbb(m, m, m, complement=True)
+    plain, plain_s = sync_time(lambda: ref.spgemm_bbb(m, m, m,
+                                                      complement=True))
+    hop_err = b2sr_mismatch(hop, plain)
     if hop_err:
         problems.append("spgemm_bbb != plain on the hop A²<¬A>")
+    hop_row = {"nnz": hop.nnz, "n_tiles": hop.n_tiles,
+               "ms": event_ms(lambda: spgemm.spgemm_bbb(m, m, m,
+                                                        complement=True)),
+               "passes": spgemm_passes(m, m, m, True),
+               "plain_ms": 1e3 * plain_s, "work": spgemm_work(m, m),
+               **bound_row(b2sr_bytes(m, hop), spgemm_ops(m, m))}
     emit({"phase": "khop", "ok": not problems, "problems": problems,
           "side": ROAD_SIDE, "k": KHOP_K, "n": n, "directed_edges": len(rows),
           "n_iterations": a.n_iterations, "reach_nnz": a.reach.nnz,
           "reach_tiles": a.reach.b2sr.n_tiles, "launches": launches,
-          "wall_s": {be: wall[be, "khop"] for be in ("b2sr_cuda", "csr")}})
+          "wall_s": {be: wall[be, "khop"] for be in ("b2sr_cuda", "csr")},
+          "b2sr_cuda_calls": calls, "hop_product": hop_row})
     if problems:
         fail("khop", "; ".join(problems))
-    return g, launches, hop_err
+    return g, launches, hop_err, hop_row
 
 
 def scipy_levels(adj, sources):
@@ -2300,8 +2423,10 @@ def main() -> int:
 
     tc_row = phase_tc(g)
     spgemm_row = phase_spgemm()
-    road, khop_launches, hop_err = phase_khop()
+    road, khop_launches, hop_err, hop_row = phase_khop()
     spgemm_row["launches"] += khop_launches["spgemm_bbb"]
+    spgemm_row.update({f"road_hop_{k}": hop_row[k]
+                       for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
 
     srcs = engine_sources(deg, sources)
     ms_auto, ls = phase_msbfs(g, srcs, want)

@@ -27,18 +27,43 @@
 // tile whose columns hold no frontier bit costs its column index and
 // nothing more, as push BFS skips a zero frontier word.
 //
-// Layout: a warp per item and per chunk of up to 32 source words. The
-// warp first gathers which bit-rows of its tile-row have an allowed bit
-// (the mask's words, complemented or not) and drops the item when none
-// has: late in a BFS most of the visited mask is full. Lanes then stride
-// over the item's tiles; a lane loads its tile's t words (16-byte vector
-// loads), keeps for each allowed bit-row r the bits c whose column holds
-// a frontier bit, and ORs F[col, c, w] into the warp's accumulator
-// acc[r][w] in shared memory. At the end the warp ANDs acc with the
-// allowed bits and merges the non-zero words into out (zeroed by the
-// wrapper) with atomicOr. This is bit-exact whatever the order: OR is
-// order-free and the mask distributes over it, so each item may mask its
-// own partial.
+// Layout: a warp per item, in two stages, as spmm_bbf since it was
+// redesigned, with OR in place of popcount-add:
+//   1. Walk and stage. The warp first gathers which bit-rows of its
+//      tile-row have an allowed bit in any source word (the mask's words,
+//      complemented or not) and drops the item when none has: late in a
+//      BFS most of the visited mask is full. It then reads the column
+//      indices of kBbbAhead batches of 32 tiles at once, coalesced, and
+//      gathers each column's frontier word, all in flight together, so a
+//      run of tiles whose columns hold no frontier bit (a sparse frontier)
+//      costs two round trips to memory. For the batches with a live tile
+//      (a frontier bit in its column), lane l loads 16-byte vectors l,
+//      l + 32, ... of the live ones among the 32 tiles, so a warp load
+//      covers 512 contiguous bytes where tiles are live. Each word r of a
+//      live tile, in an allowed bit-row and ANDed with its column's
+//      frontier word, that is not zero becomes an entry in a per-warp
+//      stage in shared memory: its tile's first row of F (col * t), r and
+//      its bits c; four votes a vector place the entries, where a warp
+//      prefix sum per set bit cost three times the instructions (the
+//      words of an R-MAT tile hold little more than one bit each).
+//   2. Drain. Lanes go over C = min(32, next power of two >= W) source
+//      words and the warp's 32 / C lane groups over the staged entries (at
+//      W = 2 a warp takes 16 entries a step, two lanes reading the 8
+//      bytes of F's row col * t + c together, c an entry's first set bit;
+//      its other bits after), kBbbUnroll entries' reads issued before
+//      their ORs into the warp's accumulator acc[r][c] with shared-memory
+//      atomicOr (an accumulator set per lane group, which needs no
+//      atomics but a merge at the end, measured slower: PERF.md).
+// The stage is drained when it is full, and at the end of the item. For
+// W <= 32 the accumulators hold the item's bits across
+// drains and are stored once; for W > 32 every drain makes one pass over
+// the staged entries per 32 source words and merges each pass into out,
+// so the tiles are read once whatever W is. The store ANDs the allowed
+// bits: an item that is its whole tile-row, drained once, stores its
+// words; the items of a cut tile-row and the drains of a wide item merge
+// with atomicOr into out (zeroed by the wrapper). This is bit-exact
+// whatever the order: OR is order-free and the mask distributes over it,
+// so each item may mask its own partial.
 //
 // Bound: device-memory bytes. Counted once: the column indices, the tiles
 // whose column holds a frontier bit and whose row an allowed bit, F, the
@@ -147,8 +172,6 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFull = 0xffffffffu;
-// Source words a warp accumulates in one pass over its item's tiles.
-constexpr int kWordChunk = 32;
 // spmm_dense: warps a block; entries a warp stages per round (9 bytes
 // each: the row of X and the bit-row as staged, then the row of X in
 // sorted order), so that a block takes 4 * (9 * 640 + 384) = 24,576
@@ -184,6 +207,23 @@ constexpr int kBbfThreads = 32 * kBbfWarps;
 constexpr int kBbfStage = 512;
 constexpr int kBbfUnroll = 4;
 
+// spmm_bbb: warps a block; entries a warp stages (9 bytes each: the
+// tile's first row of F, the word and the bit-row, with t * 32
+// accumulators of 4 bytes; at least 128, a vector round's most); entries
+// a lane group loads before its ORs into the warp's one accumulator set.
+// On an H100 at R-MAT scale 21 over an msbfs (auto) of 64 sources
+// (tools/spmm_variants.py --kernel bbb, items of 256 tiles): 2 entries in
+// flight took 1.19 ms a launch, 4 took 1.87; PERF.md lists the rest.
+constexpr int kBbbWarps = 4;
+constexpr int kBbbThreads = 32 * kBbbWarps;
+constexpr int kBbbStage = 512;
+constexpr int kBbbUnroll = 2;
+// spmm_bbb: batches of 32 tiles whose column indices and frontier words a
+// warp reads at once; blocks an SM should hold (a register cap of 65,536
+// / (128 * blocks) a thread).
+constexpr int kBbbAhead = 8;
+constexpr int kBbbBlocks = 5;
+
 template <int V>
 struct DenseTune {
   static constexpr int entries = V == 8 ? 4 : 8;
@@ -195,20 +235,14 @@ __device__ __forceinline__ constexpr uint32_t lane_mask() {
   return T == 32 ? 0xffffffffu : ((1u << T) - 1u);
 }
 
-// The t words of tile k (16-byte vector loads; bit_tiles is 16-byte
-// aligned and t is a multiple of 4).
-template <int T>
-__device__ __forceinline__ void load_tile(const uint32_t* __restrict__ tiles,
-                                          int64_t k, uint32_t (&w)[T]) {
-  const uint4* v = reinterpret_cast<const uint4*>(tiles + k * T);
+__device__ __forceinline__ uint32_t warp_inclusive_sum(uint32_t v) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int q = 0; q < T / 4; ++q) {
-    const uint4 x = __ldg(v + q);
-    w[4 * q] = x.x;
-    w[4 * q + 1] = x.y;
-    w[4 * q + 2] = x.z;
-    w[4 * q + 3] = x.w;
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t y = __shfl_up_sync(kFull, v, d);
+    if (lane >= d) v += y;
   }
+  return v;
 }
 
 // fnz[col] bit c = some word of F[col, c, :] is non-zero. One thread per
@@ -228,84 +262,208 @@ frontier_columns_kernel(const uint32_t* __restrict__ f,
   if (i < n_pairs && lane % T == 0) fnz[i / T] = (bits >> lane) & lane_mask<T>();
 }
 
+// One warp per item (see the head of this file).
 template <int T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBbbThreads, kBbbBlocks)
 spmm_bbb_kernel(const int32_t* __restrict__ col_idx,
                 const uint32_t* __restrict__ tiles,
                 const int32_t* __restrict__ item_row,
                 const int32_t* __restrict__ item_begin,
+                const int32_t* __restrict__ item_slot,
                 const uint32_t* __restrict__ f,
                 const uint32_t* __restrict__ fnz,
                 const uint32_t* __restrict__ mask,
-                uint32_t* __restrict__ out, int n_items, int W,
+                uint32_t* __restrict__ out, int n_items, int W, int C,
                 int complement) {
-  __shared__ uint32_t acc_all[kWarps][T * kWordChunk];
+  constexpr int U = kBbbUnroll;
+  constexpr int kVecs = T / 4;  // 16-byte vectors a tile holds
+  __shared__ uint32_t acc_all[kBbbWarps][T * 32];
+  __shared__ int32_t frow_all[kBbbWarps][kBbbStage];   // col * T
+  __shared__ uint32_t word_all[kBbbWarps][kBbbStage];  // the word's bits c
+  __shared__ uint8_t r_all[kBbbWarps][kBbbStage];
+  __shared__ int32_t col_all[kBbbWarps][32 * kBbbAhead];  // col * T
+  __shared__ uint32_t fz_all[kBbbWarps][32 * kBbbAhead];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int item = blockIdx.x * kWarps + warp;
+  const int item = blockIdx.x * kBbbWarps + warp;
   if (item >= n_items) return;  // uniform across the warp
   uint32_t* acc = acc_all[warp];
+  int32_t* s_frow = frow_all[warp];
+  uint32_t* s_word = word_all[warp];
+  uint8_t* s_r = r_all[warp];
+  int32_t* s_col = col_all[warp];
+  uint32_t* s_fz = fz_all[warp];
   const int row = item_row[item];
   const int k0 = item_begin[item];
   const int k1 = item_begin[item + 1];
+  const bool cut = item_slot[item] >= 0;
   const int64_t base = static_cast<int64_t>(row) * T * W;  // (row, 0, 0)
+  // bit-rows with an allowed source in any word
+  uint32_t arow = lane_mask<T>();
+  if (mask != nullptr) {
+    uint32_t part = 0;
+    for (int e = lane; e < T * W; e += 32) {
+      const uint32_t m = mask[base + e];
+      if (complement ? ~m : m) part |= 1u << (e / W);
+    }
+    arow = __reduce_or_sync(kFull, part);
+    if (arow == 0) return;  // uniform: nothing of this item can land
+  }
+  const int groups = 32 / C;
+  const int group = lane / C;
+  const int c = lane - group * C;
+  const bool one_chunk = W <= C;
+  int fill = 0;          // entries staged
+  bool written = false;  // this item has merged into out already
 
-  for (int w0 = 0; w0 < W; w0 += kWordChunk) {
-    const int nw = min(kWordChunk, W - w0);
-    // bit-rows with an allowed source in this chunk
-    uint32_t arow = lane_mask<T>();
-    if (mask != nullptr) {
-      uint32_t part = 0;
-      for (int e = lane; e < T * nw; e += 32) {
-        const int r = e / nw;
-        const uint32_t m = mask[base + static_cast<int64_t>(r) * W + w0 +
-                                (e - r * nw)];
-        if (complement ? ~m : m) part |= 1u << r;
-      }
-      arow = __reduce_or_sync(kFull, part);
-      if (arow == 0) continue;  // uniform: nothing of this chunk can land
-    }
-    for (int e = lane; e < T * nw; e += 32) {
-      const int r = e / nw;
-      acc[r * kWordChunk + (e - r * nw)] = 0;
-    }
-    __syncwarp();
-    for (int k = k0 + lane; k < k1; k += 32) {
-      const int col = col_idx[k];
-      const uint32_t fz = __ldg(fnz + col);
-      if (fz == 0) continue;  // no frontier bit in this tile's columns
-      uint32_t w[T];
-      load_tile<T>(tiles, k, w);
-      const uint32_t* fcol = f + static_cast<int64_t>(col) * T * W + w0;
+  auto zero_acc = [&]() {
 #pragma unroll
-      for (int r = 0; r < T; ++r) {
-        uint32_t bits = ((arow >> r) & 1u) ? (w[r] & fz) : 0u;
-        while (bits) {
-          const int c = __ffs(bits) - 1;
-          bits &= bits - 1;
-          const uint32_t* fp = fcol + static_cast<int64_t>(c) * W;
-          for (int j = 0; j < nw; ++j) {
-            const uint32_t v = __ldg(fp + j);
-            if (v) atomicOr(acc + r * kWordChunk + j, v);
-          }
-        }
+    for (int r = 0; r < T; ++r) acc[r * 32 + lane] = 0;
+    __syncwarp();
+  };
+  // ORs the staged entries' rows of F, source words w0 .. w0 + C - 1: an
+  // entry's first set bit in the unrolled reads, its others (rare) after
+  auto drain = [&](int w0) {
+    const int j = w0 + c;
+    const bool live = j < W;
+    for (int e0 = group; e0 < fill; e0 += groups * U) {
+      uint32_t x[U], rest[U];
+      int r[U], frow[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = e0 + groups * u;
+        const bool ok = e < fill;
+        const uint32_t word = ok ? s_word[e] : 0u;
+        r[u] = ok ? s_r[e] : 0;
+        frow[u] = ok ? s_frow[e] : 0;
+        rest[u] = live ? word & (word - 1) : 0u;
+        x[u] = word != 0 && live
+                   ? __ldg(f + static_cast<int64_t>(frow[u] + __ffs(word) - 1)
+                                   * W + j)
+                   : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        for (uint32_t bits = rest[u]; bits; bits &= bits - 1)
+          x[u] |= __ldg(f + static_cast<int64_t>(frow[u] + __ffs(bits) - 1)
+                                * W + j);
+        if (x[u] == 0) continue;
+        atomicOr(acc + r[u] * 32 + c, x[u]);
       }
     }
     __syncwarp();
-    for (int e = lane; e < T * nw; e += 32) {
-      const int r = e / nw;
-      const int j = e - r * nw;
-      uint32_t v = acc[r * kWordChunk + j];
-      if (v == 0) continue;
-      const int64_t o = base + static_cast<int64_t>(r) * W + w0 + j;
+  };
+  // the accumulators' words w0 .. w0 + C - 1, masked, into out
+  auto write = [&](int w0, bool merge) {
+    for (int e = lane; e < T * C; e += 32) {
+      const int r = e / C;
+      const int cc = e - r * C;
+      if (w0 + cc >= W || !((arow >> r) & 1u)) continue;
+      uint32_t v = acc[r * 32 + cc];
+      if (v == 0) continue;  // out is zeroed
+      const int64_t o = base + static_cast<int64_t>(r) * W + w0 + cc;
       if (mask != nullptr) {
         const uint32_t m = mask[o];
         v &= complement ? ~m : m;
       }
-      if (v) atomicOr(out + o, v);
+      if (v == 0) continue;
+      if (merge) atomicOr(out + o, v);
+      else out[o] = v;
     }
-    __syncwarp();  // acc is read before the next chunk clears it
+    __syncwarp();  // acc is read before it is cleared again
+  };
+  // drains the stage; the item's last call stores what is left
+  auto flush = [&](bool last) {
+    __syncwarp();  // the staged entries are visible to every lane
+    if (one_chunk) {
+      drain(0);
+      if (last) write(0, cut || written);
+    } else {
+      for (int w0 = 0; w0 < W; w0 += C) {
+        zero_acc();
+        drain(w0);
+        write(w0, cut || written || !last);
+      }
+      written = true;
+    }
+    fill = 0;
+  };
+
+  if (one_chunk) zero_acc();
+  for (int kb0 = k0; kb0 < k1; kb0 += 32 * kBbbAhead) {
+    // the column indices and frontier words of kBbbAhead batches of 32
+    // tiles, all read at once (a sparse frontier skips most batches)
+    int cols[kBbbAhead];
+    uint32_t fzs[kBbbAhead];
+#pragma unroll
+    for (int a = 0; a < kBbbAhead; ++a) {
+      const int k = kb0 + 32 * a + lane;
+      cols[a] = k < k1 ? __ldg(col_idx + k) : 0;
+    }
+#pragma unroll
+    for (int a = 0; a < kBbbAhead; ++a) {
+      const int k = kb0 + 32 * a + lane;
+      fzs[a] = k < k1 ? __ldg(fnz + cols[a]) : 0u;
+    }
+    uint32_t busy = 0;  // bit a: batch a holds a live tile (uniform)
+#pragma unroll
+    for (int a = 0; a < kBbbAhead; ++a) {
+      s_col[32 * a + lane] = cols[a] * T;
+      s_fz[32 * a + lane] = fzs[a];
+      busy |= static_cast<uint32_t>(__any_sync(kFull, fzs[a] != 0)) << a;
+    }
+    __syncwarp();
+    for (; busy; busy &= busy - 1) {  // uniform
+      const int a = __ffs(busy) - 1;
+      // the batch's live tiles (a frontier bit in their column): lane l
+      // loads 16-byte vectors l, l + 32, ... of them
+      const uint32_t live = __ballot_sync(kFull, s_fz[32 * a + lane] != 0);
+      const uint4* vbase = reinterpret_cast<const uint4*>(
+          tiles + static_cast<int64_t>(kb0 + 32 * a) * T);
+      uint4 v[kVecs];
+#pragma unroll
+      for (int q = 0; q < kVecs; ++q) {
+        const int i = lane + 32 * q;  // vector i holds words 4i .. 4i + 3
+        v[q] = (live >> (i / kVecs)) & 1u ? __ldg(vbase + i)
+                                          : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int q = 0; q < kVecs; ++q) {
+        const int i = lane + 32 * q;
+        const int tile = 32 * a + i / kVecs;
+        const uint32_t tfz = s_fz[tile];  // 0 for a tile that is not live
+        const int frow0 = s_col[tile];
+        const int r0 = (4 * i) % T;  // the vector's first bit-row
+        uint32_t w[4] = {v[q].x, v[q].y, v[q].z, v[q].w};
+        // the vectors' non-zero words go in order of (word b, lane): four
+        // votes place them
+        uint32_t nz[4];
+        int total = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          w[b] = (arow >> (r0 + b)) & 1u ? w[b] & tfz : 0u;
+          nz[b] = __ballot_sync(kFull, w[b] != 0);
+          total += __popc(nz[b]);
+        }
+        if (total == 0) continue;  // uniform
+        if (fill + total > kBbbStage) flush(false);
+        int at = fill;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          if (w[b]) {
+            const int e = at + __popc(nz[b] & ((1u << lane) - 1u));
+            s_frow[e] = frow0;
+            s_word[e] = w[b];
+            s_r[e] = static_cast<uint8_t>(r0 + b);
+          }
+          at += __popc(nz[b]);
+        }
+        fill += total;
+      }
+    }
+    __syncwarp();  // s_col and s_fz are written again for the next run
   }
+  flush(true);
 }
 
 // One warp per item (see the head of this file). Round by round, the
@@ -678,8 +836,9 @@ spmm_bbf_kernel(const int32_t* __restrict__ col_idx,
 }
 
 using BbbKernel = void (*)(const int32_t*, const uint32_t*, const int32_t*,
-                           const int32_t*, const uint32_t*, const uint32_t*,
-                           const uint32_t*, uint32_t*, int, int, int);
+                           const int32_t*, const int32_t*, const uint32_t*,
+                           const uint32_t*, const uint32_t*, uint32_t*, int,
+                           int, int, int);
 using ColsKernel = void (*)(const uint32_t*, uint32_t*, int64_t, int);
 using DenseKernel = void (*)(const int32_t*, const uint32_t*, const int32_t*,
                              const int32_t*, const int32_t*, const float*,
@@ -761,11 +920,13 @@ unsigned blocks_for(int64_t n, int per_block) {
 extern "C" {
 
 // fnz: uint32[n_tile_cols] scratch; out: uint32[R, t, W], zeroed by the
-// caller; mask may be null (keep every bit).
+// caller; mask may be null (keep every bit). Item i is the tiles
+// [item_begin[i], item_begin[i + 1]) of tile-row item_row[i]; item_slot[i]
+// >= 0 marks an item of a cut row.
 int spmm_bbb(const void* col_idx, const void* tiles, const void* item_row,
-             const void* item_begin, int n_items, const void* f, void* fnz,
-             const void* mask, void* out, int n_tile_cols, int W, int t,
-             int complement, void* stream) {
+             const void* item_begin, const void* item_slot, int n_items,
+             const void* f, void* fnz, const void* mask, void* out,
+             int n_tile_cols, int W, int t, int complement, void* stream) {
   const BbbKernel k = bbb_for(t);
   const ColsKernel kc = cols_for(t);
   if (k == nullptr || kc == nullptr || W <= 0)
@@ -778,12 +939,15 @@ int spmm_bbb(const void* col_idx, const void* tiles, const void* item_row,
       W);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  k<<<blocks_for(n_items, kWarps), kThreads, 0, s>>>(
+  int C = 1;
+  while (C < W && C < 32) C *= 2;
+  k<<<blocks_for(n_items, kBbbWarps), kBbbThreads, 0, s>>>(
       static_cast<const int32_t*>(col_idx), static_cast<const uint32_t*>(tiles),
       static_cast<const int32_t*>(item_row),
-      static_cast<const int32_t*>(item_begin), static_cast<const uint32_t*>(f),
+      static_cast<const int32_t*>(item_begin),
+      static_cast<const int32_t*>(item_slot), static_cast<const uint32_t*>(f),
       static_cast<const uint32_t*>(fnz), static_cast<const uint32_t*>(mask),
-      static_cast<uint32_t*>(out), n_items, W, complement);
+      static_cast<uint32_t*>(out), n_items, W, C, complement);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,12 +36,15 @@ from repro_torch.kernels.spmm import ref
 
 SOURCE = Path(__file__).with_name("spmm.cu")
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-_BBB_ARGS = [_PTR] * 4 + [_INT] + [_PTR] * 4 + [_INT] * 4 + [_PTR]
+_BBB_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 4 + [_INT] * 4 + [_PTR]
 _DENSE_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 3 + [_INT] + [_PTR] * 3 + \
     [_INT] * 4 + [_PTR]
 _BBF_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 2 + [_INT] * 2 + [_PTR]
-#: work of a ``spmm_bbb`` item, in tiles: lanes take one tile each, so an
-#: item is 8 steps of a warp
+#: work of a ``spmm_bbb`` item, in tiles: a warp reads 32 tiles a step,
+#: so an item is 8 steps. On an H100 over an msbfs (auto) of 64 sources at
+#: R-MAT scale 21 (``tools/spmm_variants.py --kernel bbb``), items of 256
+#: tiles took 1.19-1.20 ms a launch, 128: 1.27-1.28, 512: 1.31-1.32,
+#: 1,024: 1.39
 BBB_ITEM_WORK = 256
 #: work of a ``spmm_bbf`` item, in tiles: the cut ``bmv_bbf`` keeps, so
 #: the graph holds one cut for both. On an H100 at R-MAT scale 21, D = 16
@@ -112,7 +115,8 @@ def spmm_bbb(m: B2SR, f: torch.Tensor, mask: Optional[torch.Tensor] = None,
         common.call(SOURCE, "spmm_bbb", _BBB_ARGS, f,
                     m.tile_col_idx.data_ptr(), m.bit_tiles.data_ptr(),
                     items.row.data_ptr(), items.begin.data_ptr(),
-                    items.n_items, f.data_ptr(), fnz.data_ptr(),
+                    items.slot.data_ptr(), items.n_items, f.data_ptr(),
+                    fnz.data_ptr(),
                     None if mask is None else mask.data_ptr(),
                     out.data_ptr(), m.n_tile_cols, w, t, int(complement))
         spmm_bbb.launches += 1

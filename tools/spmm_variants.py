@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Time variants of the ``spmm_dense`` or ``spmm_bbf`` kernel on one GPU.
+"""Time variants of the ``spmm_dense``, ``spmm_bbf`` or ``spmm_bbb`` kernel
+on one GPU.
 
 Run from the repository root:
 
     python3 tools/spmm_variants.py            # spmm_dense, R-MAT scale 21
     python3 tools/spmm_variants.py --scale 16
     python3 tools/spmm_variants.py --kernel bbf
+    python3 tools/spmm_variants.py --kernel bbb
 
 Each variant is a copy of ``src/repro_torch/kernels/spmm/spmm.cu`` with
 some of its tuning constants changed (entries staged per round, and for
@@ -29,6 +31,16 @@ adds) runs with each work-item cut of
 :data:`BBF_CUTS` on random ``BitMatrix`` words (half the bits set) of
 D = 16 (gcn-cora's hidden width) and 130, checked bit for bit against
 the plain version and timed (median of 5) in order and in reverse.
+
+``--kernel bbb`` does the same for ``spmm_bbb``: each variant of its
+constants (entries staged a warp, entries a lane group loads before its
+ORs, batches of 32 tiles whose column indices and frontier words a
+warp reads at once, blocks an SM should hold) runs with each work-item cut of
+:data:`BBB_CUTS` on the inputs of every iteration of an msbfs (auto) of
+64 sources, as ``chip_smoke.py``'s ``spmm_timing`` phase builds them
+(frontier and visited mask over the stored transpose), checked bit for
+bit against the plain version and timed (median of 5 a launch, the mean
+over the iterations) in order and in reverse.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import argparse
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -70,6 +83,17 @@ BBF_VARIANTS = {
 #: spmm_bbf work-item cuts: (budget, by_bits)
 BBF_CUTS = ((256, False), (512, True), (768, True))
 BBF_WIDTHS = (16, 130)
+#: spmm_bbb variants: {constant: value} of its ``constexpr int`` constants
+BBB_VARIANTS = {
+    "default": {},
+    "unroll_1": {"kBbbUnroll": 1},
+    "unroll_4": {"kBbbUnroll": 4},
+    "stage_256": {"kBbbStage": 256},
+    "ahead_4": {"kBbbAhead": 4},
+    "blocks_6": {"kBbbBlocks": 6},
+}
+#: spmm_bbb work-item cuts, in tiles
+BBB_CUTS = (128, 256, 512, 1024)
 
 
 def variant_source(changes) -> str:
@@ -172,10 +196,65 @@ def bbf_main(scale: int) -> int:
     return 0 if all(ok.values()) else 1
 
 
+def bbb_main(scale: int) -> int:
+    """The spmm_bbb variants (see the module's docstring)."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.core.b2sr import pack_frontier_matrix
+    from repro_torch.engine import msbfs
+    from repro_torch.kernels import common
+    from repro_torch.kernels.items import work_items
+    from repro_torch.kernels.spmm import ref, spmm
+
+    paths = build(BBB_VARIANTS, "bbb")
+    g = rmat(scale)
+    regs = {}
+    for name, path in paths.items():
+        for kname, r in common.kernel_resources(path.stem).items():
+            if re.search(r"spmm_bbb_kernelILi32E", kname):
+                regs[name] = r
+    deg = g.degrees().cpu().numpy()
+    sources = [int(v) for v in np.random.default_rng(cs.SEED + 1).choice(
+        np.flatnonzero(deg), cs.N_SOURCES, replace=False)]
+    res = msbfs(g, cs.engine_sources(deg, sources), direction="auto")
+    m = g.transposed().b2sr
+    t, n = m.tile_dim, g.n_rows
+    inputs = []
+    for it in range(res.n_iterations):
+        f = pack_frontier_matrix(res.levels == it, t, n)
+        vis = pack_frontier_matrix((res.levels >= 0) & (res.levels <= it),
+                                   t, n)
+        inputs.append((f, vis, ref.spmm_bbb(m, f, vis)))
+    cuts = {b: work_items(m, b) for b in BBB_CUTS}
+    times = {name: {b: [] for b in BBB_CUTS} for name in paths}
+    ok = {name: True for name in paths}
+    for order in (list(paths), list(reversed(paths))):
+        for name in order:
+            spmm.SOURCE = paths[name]
+            for b, items in cuts.items():
+                per_it = []
+                for f, vis, want in inputs:
+                    ok[name] &= bool(torch.equal(
+                        spmm.spmm_bbb(m, f, vis, items=items), want))
+                    per_it.append(cs.event_ms(
+                        lambda f=f, vis=vis, items=items: spmm.spmm_bbb(
+                            m, f, vis, items=items), reps=5))
+                times[name][b].append(statistics.fmean(per_it))
+    spmm.SOURCE = SOURCE
+    print(json.dumps({"kernel": "spmm_bbb", "scale": scale,
+                      "iterations": res.n_iterations,
+                      "variants": BBB_VARIANTS,
+                      "n_items": {b: c.n_items for b, c in cuts.items()},
+                      "resources": regs, "ok": ok,
+                      "mean_ms_per_launch": times}))
+    return 0 if all(ok.values()) else 1
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--scale", type=int, default=21)
-    parser.add_argument("--kernel", choices=("dense", "bbf"),
+    parser.add_argument("--kernel", choices=("dense", "bbf", "bbb"),
                         default="dense")
     args = parser.parse_args()
     scale = args.scale
@@ -185,6 +264,8 @@ def main() -> int:
         return 1
     if args.kernel == "bbf":
         return bbf_main(scale)
+    if args.kernel == "bbb":
+        return bbb_main(scale)
     import chip_smoke as cs
     from repro_torch.kernels.items import items_for
     from repro_torch.kernels.spmm import ref, spmm
