@@ -19,13 +19,14 @@ exits non-zero.
      (``kernels/bmv/ref.py``) on the card, at tile dims 4/8/16/32 on small
      dot/rmat/road graphs and on the full graph. ``bmv_bbb_push`` bit
      for bit (frontiers at 0.1%/10%/60% density; no mask, a mask kept
-     and its complement) and ``bmv_bbb_pull`` (the masks); ``bmv_bbf``
+     and its complement) and ``bmv_bbb_pull`` (the masks; with and
+     without the rows' lane occupancy); ``bmv_bbf``
      bit for bit (the same frontiers); ``bmv_bff`` bit for bit in modes
      min_plus and max_times and, in mode sum, within
      ``|y - y_plain| <= 1e-5 * (A·|a·x|)`` elementwise and equal bit for
      bit on a second launch, each with ``a_value`` 1.0 and 0.0. Push,
-     ``bmv_bbf`` and ``bmv_bff`` run with their default work items and
-     with items of 3 tiles (every row of more than 3 tiles cut and
+     pull, ``bmv_bbf`` and ``bmv_bff`` run with their default work items
+     and with items of 3 tiles (every row of more than 3 tiles cut and
      merged).
   2. bfs: Graph500 R-MAT scale 21, edgefactor 16 (n = 2,097,152;
      A/B/C = 0.57/0.19/0.19; symmetrised, no self-loops), tile dim 32.
@@ -111,8 +112,11 @@ exits non-zero.
  15. bitpack: ``kernels.bitpack.ops.bit_transpose`` of the graph's
      tiles (equal to the tiles of the stored transpose, which is built
      from the swapped COO) and ``pack_dense`` of a [32768, 32768] uint8
-     0/1 matrix (equal to its plain version), their launch counts, and
-     each kernel's time beside its plain version and its bound.
+     0/1 matrix (equal to its plain version, row- and column-major, and
+     on the same entries as float32 with -0.0 among the zeros), their
+     launch counts, and each kernel's time beside its plain version and
+     its bound (``pack_dense`` also column-major and on the float32
+     entries, beside their own bound).
  16. gnn: BitGNN inference at gcn-cora's widths (d_in 1433, d_hidden 16,
      7 classes, 2 layers) on the same graph, bag-of-words features and
      random weights made on the card from the seed: ``gnn_infer`` of the
@@ -140,10 +144,13 @@ exits non-zero.
      function, and the bound (bytes over 3.35 TB/s or operations over
      67 TFLOP/s); the graph's B2SR and CSR bytes. Push, ``bmv_bff`` and
      ``bmv_bbf`` run with the work items the registry keeps, and the
-     line gives the cut's one-off time apart, each kernel on the hub
-     tile-rows' items alone, and ``bmv_bff`` (sum) at tile dims 16 and 8
-     on the same graph (time, bytes, bound, error against the plain
-     version). Phases 7-8 time their own kernels the same way.
+     line gives the cut's (and pull's lane occupancy's) one-off time
+     apart, each kernel on the hub tile-rows' items alone (push and pull
+     beside each other), and ``bmv_bff`` (sum) at tile dims 16 and 8 on
+     the same graph (time, bytes, bound, error against the plain
+     version). Pull runs with the
+     items and the lane occupancy the registry keeps. Phases 7-8 time
+     their own kernels the same way.
  18. profile: one run per algorithm and BFS direction, triangle counting,
      k-hop, msbfs (auto), batched PPR and ``gnn_infer`` (bit and float)
      under ``torch.profiler``: device time by kernel and the card's idle
@@ -172,7 +179,10 @@ and (D > 32, small graphs) the same bits with every V; ``spmm_bbf``
 ``pack_rows`` (float32 and bool input) at D = 1, 7, 16, 33, 130 on the
 small graphs and at D = 16 on the full graph, ``pack_dense`` of
 each small graph's dense adjacency, row- and column-major (row-major also
-equal to the graph's own B2SR tiles), and ``bit_transpose`` of every
+equal to the graph's own B2SR tiles), and of [70, m] bool, uint8, int8,
+int32 and float32 entries (-0.0 and NaN among the float32) at m = 1, 15,
+17, 33, 100, 1,024 and 1,040 and of contiguous views with a storage
+offset, at every tile dim, both orders, and ``bit_transpose`` of every
 graph's tiles, all bit for bit.
 
 Then the card's name and power limit, the kernel table as one JSON line,
@@ -257,6 +267,8 @@ GNN_QUERIES = 96               # batcher: gnn_infer queries per model
 BIT_TOL = 1e-5                 # bit-path logits against float64, see phase_gnn
 FLOAT_TOL = 1e-4               # float-path logits, see phase_gnn
 PACK_SIDE = 32768              # pack_dense timing: [PACK_SIDE, PACK_SIDE]
+PACK_ROWS = 70                 # pack_dense checks: rows, widths, types
+PACK_WIDTHS = (1, 15, 17, 33, 100, 1024, 1040)
 TRANSPOSE_CHUNK = 1 << 19      # tiles per plain bit_transpose call
 
 
@@ -399,9 +411,11 @@ def phase_kernels(full_g, rng):
     worst_sum_ratio = 0.0
     for name, g in cases:
         m = g.b2sr
-        # push, bmv_bbf and bmv_bff also with items of 3 tiles: every row
-        # of more than 3 tiles is cut and merged
+        # push, pull, bmv_bbf and bmv_bff also with items of 3 tiles:
+        # every row of more than 3 tiles is cut and merged
         cuts = (None, work_items(m, 3))
+        every_lane = {"lanes": torch.full((m.n_tile_rows,), -1,
+                                          dtype=torch.int32, device=DEVICE)}
         for dens in DENSITIES:
             x = g.pack(torch.as_tensor(rng.random(g.n_cols) < dens,
                                        device=DEVICE))
@@ -411,12 +425,13 @@ def phase_kernels(full_g, rng):
             # with the mask
             for mk, comp in ((None, True), (mask, True), (mask, False)):
                 args, kw = kernel_args(m, x, mk, comp)
-                runs = [("bmv_bbb_push", items) for items in cuts]
-                if mk is not None:
-                    runs.append(("bmv_bbb_pull", None))
-                for k, items in runs:
-                    extra = {} if k == "bmv_bbb_pull" else {"items": items}
-                    got = getattr(bmv, k)(*args, **kw, **extra)
+                runs = [("bmv_bbb_push", items, {}) for items in cuts]
+                if mk is not None:   # pull with its row_lanes and without
+                    runs += [("bmv_bbb_pull", items, extra)
+                             for items, extra in itertools.product(
+                                 cuts, ({}, every_lane))]
+                for k, items, extra in runs:
+                    got = getattr(bmv, k)(*args, **kw, items=items, **extra)
                     want = getattr(ref, k)(*args, **kw)
                     sync()
                     err = int((to_uint(got) - to_uint(want)).abs().max())
@@ -424,7 +439,8 @@ def phase_kernels(full_g, rng):
                     n_checks += 1
                     if err:
                         bad.append([k, name, m.tile_dim, dens,
-                                    mk is not None, comp, items is None])
+                                    mk is not None, comp, items is None,
+                                    bool(extra)])
             want = ref.bmv_bbf(*b2sr_args(m), x, t=m.tile_dim)
             for items in cuts:
                 got = bmv.bmv_bbf(*b2sr_args(m), x, t=m.tile_dim,
@@ -743,7 +759,48 @@ def check_bit_kernels(cases, max_err, bad) -> int:
             if not col_major:
                 err = err or uint_err(got, grid)
             record("pack_dense", err, name, t, col_major)
+    for (label, x), t, col_major in itertools.product(
+            pack_inputs(gen), (4, 8, 16, 32), (False, True)):
+        record("pack_dense", uint_err(bitpack.pack_dense(x, t, col_major),
+                                      bref.pack_dense(x, t, col_major)),
+               label, t, col_major)
     return n_checks
+
+
+def pack_inputs(gen):
+    """pack_dense inputs beside the adjacencies: (label, [n, m] entries)
+    for each entry type at PACK_WIDTHS (rows not a multiple of 32; widths
+    whose rows start off 16 bytes, and runs past the last column, take
+    the kernel's scalar path), float32 with -0.0 and NaN, and contiguous
+    views with a storage offset (rows off 16 bytes, and on them)."""
+    import torch
+
+    def entries(dtype, n, m):
+        keep = torch.rand((n, m), generator=gen, device=DEVICE) < 0.3
+        v = torch.randint(-3, 4, (n, m), generator=gen, device=DEVICE)
+        if dtype == torch.bool:
+            return keep
+        if dtype == torch.uint8:
+            v = v.abs()
+        x = torch.where(keep, v, 0).to(dtype)
+        if dtype == torch.float32:
+            x[~keep & (torch.rand((n, m), generator=gen, device=DEVICE)
+                       < 0.5)] = -0.0
+            x[0, -1] = float("nan")
+        return x
+
+    dtypes = (torch.bool, torch.uint8, torch.int8, torch.int32,
+              torch.float32)
+    n = PACK_ROWS
+    for dtype, m in itertools.product(dtypes, PACK_WIDTHS):
+        yield f"{str(dtype)[6:]}[{n}, {m}]", entries(dtype, n, m)
+    for dtype in dtypes:
+        m = 1040
+        flat = entries(dtype, 1, n * m + 64).flatten()
+        yield f"{str(dtype)[6:]} offset 5", flat[5:5 + n * m].view(n, m)
+        step = 16 // flat.element_size()
+        yield (f"{str(dtype)[6:]} offset 16 B",
+               flat[step:step + n * m].view(n, m))
 
 
 def one_row(m, r: int):
@@ -1386,11 +1443,12 @@ def bfs_timing(gt, levels, n_iterations, spmv):
     from repro_torch.core.descriptor import Descriptor
     from repro_torch.core.operands import BitVector
     from repro_torch.kernels.bmv import bmv, ref
-    from repro_torch.kernels.items import items_for
+    from repro_torch.kernels.items import items_for, lanes_for
 
     m = gt.b2sr
     gc = gt.with_backend("csr")
     items = items_for(gt, bmv.BBF_ITEM_WORK)
+    lanes = lanes_for(gt)
     rows = {k: [] for k in ("bmv_bbb_push", "bmv_bbb_pull", "bmv_bbf")}
     csr_row_ms = []
     for it, xf in enumerate(frontiers(gt, levels, n_iterations)):
@@ -1407,7 +1465,9 @@ def bfs_timing(gt, levels, n_iterations, spmv):
             "bmv_bbb_push": (lambda: bmv.bmv_bbb_push(*args, **kw,
                                                       items=items),
                              lambda: ref.bmv_bbb_push(*args, **kw)),
-            "bmv_bbb_pull": (lambda: bmv.bmv_bbb_pull(*args, **kw),
+            "bmv_bbb_pull": (lambda: bmv.bmv_bbb_pull(*args, **kw,
+                                                      items=items,
+                                                      lanes=lanes),
                              lambda: ref.bmv_bbb_pull(*args, **kw))}
         calls["bmv_bbf"] = (
             lambda: bmv.bmv_bbf(*b2sr_args(m), front, t=m.tile_dim,
@@ -1452,14 +1512,15 @@ def row_items(items, r: int, lo: int):
 
 
 def heavy_rows(gt, x):
-    """bmv_bff (sum mode), bmv_bbf and push (every x word non-zero, no
-    mask: push stops each item once every lane is set) on one tile-row
-    alone, its work items as the registry keeps them, for the row with
-    the most tiles and the row with the most set bits: what a hub row
-    costs now that its items spread over many warps."""
+    """bmv_bff (sum mode), bmv_bbf, push (every x word non-zero, no
+    mask: push stops each item once every lane is set) and pull (the
+    same x, a mask that allows every lane: the same function) on one
+    tile-row alone, its work items as the registry keeps them, for the
+    row with the most tiles and the row with the most set bits: what a
+    hub row costs now that its items spread over many warps."""
     import torch
     from repro_torch.kernels.bmv import bmv
-    from repro_torch.kernels.items import items_for
+    from repro_torch.kernels.items import items_for, row_lanes
 
     m = gt.b2sr
     t = m.tile_dim
@@ -1467,6 +1528,7 @@ def heavy_rows(gt, x):
     x3 = pad_x3(x, t, 0.0)
     xw = torch.full((m.n_tile_cols,), -1, dtype=torch.int32,
                     device=x.device)
+    none_visited = torch.zeros(1, dtype=torch.int32, device=x.device)
     bff_items = items_for(gt, bmv.BFF_ITEM_WORK, by_bits=True)
     bbf_items = items_for(gt, bmv.BBF_ITEM_WORK)
     deg = gt.degrees()
@@ -1479,6 +1541,7 @@ def heavy_rows(gt, x):
         one = (ptr.new_tensor([0, hi - lo]), m.tile_col_idx[lo:hi],
                m.bit_tiles[lo:hi])
         fi, ci = row_items(bff_items, r, lo), row_items(bbf_items, r, lo)
+        lanes = row_lanes(one[0], one[2])
         out[key] = {
             "row": r, "tiles": hi - lo,
             "set_bits": int(bits[r * t:(r + 1) * t].sum()),
@@ -1489,7 +1552,9 @@ def heavy_rows(gt, x):
             "bbf_ms": event_ms(lambda: bmv.bmv_bbf(*one, xw, t=t,
                                                    items=ci)),
             "push_ms": event_ms(lambda: bmv.bmv_bbb_push(
-                *one, xw, None, t=t, items=ci))}
+                *one, xw, None, t=t, items=ci)),
+            "pull_ms": event_ms(lambda: bmv.bmv_bbb_pull(
+                *one, xw, none_visited, t=t, items=ci, lanes=lanes))}
     return out
 
 
@@ -1542,7 +1607,7 @@ def bff_timing(g, sources, spmv, coo):
     import torch
     from repro_torch.algorithms import connected_components, pagerank, sssp
     from repro_torch.kernels.bmv import bmv, ref
-    from repro_torch.kernels.items import items_for
+    from repro_torch.kernels.items import items_for, row_lanes
 
     gt = g.transposed()
     m = gt.b2sr
@@ -1567,7 +1632,11 @@ def bff_timing(g, sources, spmv, coo):
     out = {"heavy_rows": heavy_rows(gt, first_pr),
            "items": items.n_items, "cut_rows": int(items.cut_row.numel()),
            "cut_ms": {"bmv_bff": cut_ms(m, bmv.BFF_ITEM_WORK, by_bits=True),
-                      "bmv_bbf": cut_ms(m, bmv.BBF_ITEM_WORK)}}
+                      "bmv_bbf": cut_ms(m, bmv.BBF_ITEM_WORK),
+                      "row_lanes": 1e3 * statistics.median(
+                          sync_time(lambda: row_lanes(m.tile_row_ptr,
+                                                      m.bit_tiles))[1]
+                          for _ in range(3))}}
     for name, (mode, a_value, xs) in inputs.items():
         ident = float("inf") if mode == "min_plus" else 0.0
         x3s = [pad_x3(x, t, ident) for x in xs]
@@ -1593,6 +1662,8 @@ def bff_timing(g, sources, spmv, coo):
 
 def phase_timing(g, bfs_first, sources, launches, coo):
     """Per-launch times on the main path's inputs; the kernel table."""
+    from repro_torch.core.words import lane_mask
+    from repro_torch.kernels.items import lanes_for
     gt = g.transposed()
     m = gt.b2sr
     spmv = csr_spmv(gt.csr)
@@ -1602,10 +1673,15 @@ def phase_timing(g, bfs_first, sources, launches, coo):
     b2sr_bytes = 4 * (m.tile_row_ptr.numel() + m.n_tiles
                       + m.n_tiles * m.tile_dim)
     csr_bytes = 4 * (gt.csr.row_ptr.numel() + 2 * g.nnz)
+    full = lane_mask(m.tile_dim)
     emit({"phase": "timing", "ok": True, "per_iteration": bfs_rows,
           "bmv_bff": bff, "csr_row_ms": csr_ms,
           "graph": {"n": g.n_rows, "nnz": g.nnz, "n_tiles": m.n_tiles,
                     "n_tile_rows": m.n_tile_rows,
+                    # tile-rows of Aᵀ with a lane no tile can set (pull's
+                    # row_lanes; a vertex without edges)
+                    "tile_rows_with_an_empty_lane": int(
+                        ((lanes_for(gt) & full) != full).sum()),
                     "b2sr_bytes": b2sr_bytes, "csr_bytes": csr_bytes}})
 
     def mean(rows, key):
@@ -2019,9 +2095,24 @@ def phase_bitpack(g):
     if not torch.equal(packed, ref.pack_dense(x, t)):
         problems.append("pack_dense != plain")
     del packed
+    if not torch.equal(bitpack.pack_dense(x, t, True),
+                       ref.pack_dense(x, t, True)):
+        problems.append("pack_dense column-major != plain")
+    torch.cuda.empty_cache()
+    r_c = -(-PACK_SIDE // t)
+    out_bytes = 4 * r_c * r_c * t
+    # float32 entries at the same shape, -0.0 among the zeros
+    xf = x.float()
+    xf[(x == 0) & (torch.rand(x.shape, device=DEVICE) < 0.5)] = -0.0
+    if not torch.equal(bitpack.pack_dense(xf, t), ref.pack_dense(xf, t)):
+        problems.append("pack_dense float32 != plain")
+    torch.cuda.empty_cache()
+    f32 = {"float32_ms": event_ms(lambda: bitpack.pack_dense(xf, t)),
+           **{f"float32_{k}": v for k, v in bound_row(
+               xf.numel() * 4 + out_bytes, 2 * xf.numel()).items()}}
+    del xf
     torch.cuda.empty_cache()
     nbytes_t = 2 * 4 * m.bit_tiles.numel()
-    r_c = -(-PACK_SIDE // t)
     rows = [
         {"name": "bit_transpose",
          "ms": event_ms(lambda: bitpack.bit_transpose(m.bit_tiles, t)),
@@ -2036,10 +2127,14 @@ def phase_bitpack(g):
          "ms": event_ms(lambda: bitpack.pack_dense(x, t)),
          "plain_ms": event_ms(lambda: ref.pack_dense(x, t), reps=1),
          # a compare and an OR per entry
-         **bound_row(x.numel() + 4 * r_c * r_c * t, 2 * x.numel()),
+         **bound_row(x.numel() + out_bytes, 2 * x.numel()),
          "library_ms": None, "csr_row_ms": None,
-         "inputs": f"[{PACK_SIDE}, {PACK_SIDE}] uint8 0/1, row-major; no "
-                   f"PyTorch call packs bits, no csr row"},
+         "col_major_ms": event_ms(lambda: bitpack.pack_dense(x, t, True)),
+         **f32,
+         "inputs": f"[{PACK_SIDE}, {PACK_SIDE}] uint8 0/1, row-major "
+                   f"(col_major_ms: column-major; float32_*: the same "
+                   f"entries as float32); no PyTorch call packs bits, no "
+                   f"csr row"},
     ]
     for row in rows:
         row["launches"] = launches[row["name"]]

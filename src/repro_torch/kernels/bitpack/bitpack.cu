@@ -21,11 +21,21 @@
 //
 //   pack_rows: one thread per output word (c, j). It reads x[c*t + r, j]
 //   for r < t: at each r a warp reads 32 neighbouring entries of a row.
-//   pack_dense: one warp per (tile-row, strip of 32 columns); at each of
-//   the t bit-rows the lanes read 32 neighbouring entries of one row.
-//   Row-major, __ballot_sync of the lanes' bits gives the bit-row's word
-//   of each tile of the strip (the paper's ballot); column-major, lane c
-//   ORs its bit into bit r of its own word, which is column c's word.
+//   pack_dense: a stream (1.07 GB of uint8 in, 134 MB of words out for a
+//   [32768, 32768] matrix), laid out so that each lane loads 16 bytes at a
+//   time, many loads in flight, and each tile's words are stored
+//   together. A warp takes 32 consecutive rows and a run of columns:
+//   lane l reads kPackRunBytes contiguous bytes of row l (at least 32
+//   entries), all its 16-byte loads issued before any is used, and turns
+//   them into bits a word at a time (__vcmpne4 and a multiply that
+//   gathers the four bytes' top bits; 4-byte entries one compare each).
+//   Its bits, cut t at a time, are word (l % t) of the run's tiles in
+//   tile-row l / t, so the t lanes of a tile store its t words as one
+//   coalesced run. Column-major, the t lanes first bit-transpose each
+//   tile in registers with bit_transpose_kernel's butterfly. A row whose
+//   start is not 16-byte aligned (a width m not a multiple of 16 bytes,
+//   a view with a storage offset) and a run past the last column take a
+//   scalar path in the kernel; rows past n read as 0.
 //   bit_transpose: one thread per word, so a warp holds 32 / t whole
 //   tiles, row r of a tile in lane r of its group; log2(t) butterfly
 //   steps exchange the off-diagonal blocks of halving size between lane
@@ -38,6 +48,7 @@
 // way (8.46 GB for the 33,033,055 tiles of R-MAT scale 21, t = 32:
 // 2.5 ms at 3.35 TB/s). None does more than a few operations per byte.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -55,6 +66,28 @@ __device__ __forceinline__ bool nonzero(uint8_t v) { return v != 0; }
 __device__ __forceinline__ bool nonzero(uint32_t v) { return v != 0; }
 __device__ __forceinline__ bool nonzero(float v) { return v != 0.0f; }
 
+// The bit transpose of the t x t tile whose row r lane r of each group
+// of t lanes holds in w (every lane of the warp takes part): log2(t)
+// butterfly steps exchange the off-diagonal blocks of halving size
+// between lane r and lane r ^ j.
+__device__ __forceinline__ uint32_t transpose_lanes(uint32_t w, int t,
+                                                   int lane) {
+  // bits c with (c & j) == 0, for j = 16, 8, 4, 2, 1
+  const uint32_t keep[5] = {0x0000ffffu, 0x00ff00ffu, 0x0f0f0f0fu,
+                            0x33333333u, 0x55555555u};
+  int s = 0;
+  for (int j = 16; j >= 1; j >>= 1, ++s) {
+    if (j >= t) continue;  // uniform: t is the same for every lane
+    const uint32_t k = keep[s];
+    const uint32_t o = __shfl_xor_sync(kFull, w, j);
+    // the upper row of a block pair takes the lower row's left block into
+    // its right block; the lower row the upper row's right block into its
+    // left block
+    w = (lane & j) ? ((w & ~k) | ((o >> j) & k)) : ((w & k) | ((o & k) << j));
+  }
+  return w;
+}
+
 template <typename E>
 __global__ void __launch_bounds__(kThreads)
 pack_rows_kernel(const E* __restrict__ x, uint32_t* __restrict__ out,
@@ -71,59 +104,146 @@ pack_rows_kernel(const E* __restrict__ x, uint32_t* __restrict__ out,
   out[i] = w;
 }
 
-template <typename E>
+// Bytes of its row a pack_dense lane reads (at least 32 entries; picked
+// with tools/bitpack_variants.py on [32768, 32768] uint8 0/1, t = 32;
+// NVIDIA H100 80GB HBM3, 700.00 W; ms in order and reversed, bound
+// 0.361): 64 bytes 0.491, 0.465; 128 bytes 0.468, 0.497 (column-major
+// 0.477, 0.488; float32 entries 1.775, 1.816, bound 1.322); 256 bytes
+// 0.492, 0.489 (float32 1.92-1.93); 512 bytes 0.549-0.565.
+constexpr int kPackRunBytes = 128;
+
+// Bit i is set iff byte i of w is non-zero: __vcmpne4 sets a non-zero
+// byte to 0xff, and the multiply moves the four top bits, at 7, 15, 23,
+// 31, to 28..31 (no two partial products meet, so nothing carries).
+__device__ __forceinline__ uint32_t byte_bits(uint32_t w) {
+  return ((__vcmpne4(w, 0u) & 0x80808080u) * 0x00204081u) >> 28;
+}
+
+// Entry codes of pack_dense: 1-byte entries, int32, float32.
+template <int E> struct Entries;
+template <> struct Entries<0> {
+  static constexpr int kBytes = 1;
+  static __device__ __forceinline__ uint32_t bits(uint4 v) {  // 16 bits
+    return byte_bits(v.x) | byte_bits(v.y) << 4 | byte_bits(v.z) << 8 |
+           byte_bits(v.w) << 12;
+  }
+  static __device__ __forceinline__ bool one(const void* p, int64_t i) {
+    return __ldg(static_cast<const uint8_t*>(p) + i) != 0;
+  }
+};
+template <> struct Entries<1> {
+  static constexpr int kBytes = 4;
+  static __device__ __forceinline__ uint32_t bits(uint4 v) {  // 4 bits
+    return (v.x != 0) | (v.y != 0) << 1 | (v.z != 0) << 2 | (v.w != 0) << 3;
+  }
+  static __device__ __forceinline__ bool one(const void* p, int64_t i) {
+    return __ldg(static_cast<const uint32_t*>(p) + i) != 0;
+  }
+};
+template <> struct Entries<2> {  // float32: -0.0 is zero, NaN is not
+  static constexpr int kBytes = 4;
+  static constexpr uint32_t kMag = 0x7fffffffu;
+  static __device__ __forceinline__ uint32_t bits(uint4 v) {
+    return ((v.x & kMag) != 0) | ((v.y & kMag) != 0) << 1 |
+           ((v.z & kMag) != 0) << 2 | ((v.w & kMag) != 0) << 3;
+  }
+  static __device__ __forceinline__ bool one(const void* p, int64_t i) {
+    return (__ldg(static_cast<const uint32_t*>(p) + i) & kMag) != 0;
+  }
+};
+
+// The head of this file: warp (row block rb, run) packs rows 32 rb ..
+// 32 rb + 31, columns run * kRun .. + kRun (kRun entries, whole tiles).
+// aligned: every row starts on 16 bytes.
+template <int E, int T>
 __global__ void __launch_bounds__(kThreads)
-pack_dense_kernel(const E* __restrict__ x, uint32_t* __restrict__ out,
-                  int64_t n, int64_t m, int t, int64_t R, int64_t C,
-                  int64_t n_strips, int col_major) {
+pack_dense_kernel(const void* __restrict__ x, uint32_t* __restrict__ out,
+                  int64_t n, int64_t m, int64_t R, int64_t C,
+                  int64_t n_runs, int aligned, int col_major) {
+  using En = Entries<E>;
+  constexpr int kRun = kPackRunBytes / En::kBytes < 32
+                           ? 32 : kPackRunBytes / En::kBytes;
+  constexpr int kVecs = kRun * En::kBytes / 16;   // 16-byte loads
+  constexpr int kPerVec = 16 / En::kBytes;        // entries a load
+  constexpr int kChunks = kRun / 32;              // words of 32 bits
+  constexpr int kVecsPerChunk = 32 / kPerVec;
   const int lane = threadIdx.x & 31;
   const int64_t warp = blockIdx.x * static_cast<int64_t>(kWarps) +
                        (threadIdx.x >> 5);
-  const int64_t tr = warp / n_strips;
-  if (tr >= R) return;  // uniform across the warp
-  const int64_t col = (warp - tr * n_strips) * 32 + lane;
-  const int64_t tc = col / t;  // this lane's tile of the strip
-  const int c = lane % t;      // and its column in that tile
-  const bool in_cols = col < m;
-  uint32_t acc = 0;
-  for (int r = 0; r < t; ++r) {
-    const int64_t row = tr * t + r;
-    const bool bit = in_cols && row < n && nonzero(__ldg(x + row * m + col));
-    if (col_major) {
-      acc |= static_cast<uint32_t>(bit) << r;
-    } else {
-      const uint32_t b = __ballot_sync(kFull, bit);
-      if (c == 0 && tc < C)
-        out[(tr * C + tc) * t + r] = (b >> lane) & low_bits(t);
+  const int64_t rb = warp / n_runs;
+  if (rb * 32 >= R * T) return;  // uniform across the warp
+  const int64_t c0 = (warp - rb * n_runs) * kRun;
+  const int64_t row = rb * 32 + lane;
+  uint32_t chunk[kChunks];
+  if (aligned && row < n && c0 + kRun <= m) {
+    const uint4* v = reinterpret_cast<const uint4*>(
+        static_cast<const char*>(x) + (row * m + c0) * En::kBytes);
+    uint4 w[kVecs];
+#pragma unroll
+    for (int q = 0; q < kVecs; ++q) w[q] = __ldg(v + q);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      chunk[c] = 0;
+#pragma unroll
+      for (int q = 0; q < kVecsPerChunk; ++q)
+        chunk[c] |= En::bits(w[c * kVecsPerChunk + q]) << (q * kPerVec);
+    }
+  } else {  // the ragged edge, one entry at a time
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      chunk[c] = 0;
+      for (int i = 0; i < 32; ++i) {
+        const int64_t col = c0 + c * 32 + i;
+        if (row < n && col < m && En::one(x, row * m + col))
+          chunk[c] |= 1u << i;
+      }
     }
   }
-  if (col_major && tc < C) out[(tr * C + tc) * t + c] = acc;
+  const int64_t tr = row / T;  // this lane's tile-row, and word r of it
+  const int r = lane % T;
+#pragma unroll
+  for (int j = 0; j < kRun / T; ++j) {
+    uint32_t w = (chunk[j * T / 32] >> (j * T % 32)) & low_bits(T);
+    if (col_major) w = transpose_lanes(w, T, lane);  // uniform
+    const int64_t tc = c0 / T + j;
+    if (tr < R && tc < C) out[(tr * C + tc) * T + r] = w;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
 bit_transpose_kernel(const uint32_t* __restrict__ in,
                      uint32_t* __restrict__ out, int64_t n_words, int t) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
-  const int lane = threadIdx.x & 31;
   // every lane takes part in the shuffles; lanes past the end carry 0
-  uint32_t w = i < n_words ? (__ldg(in + i) & low_bits(t)) : 0u;
-  // bits c with (c & j) == 0, for j = 16, 8, 4, 2, 1
-  const uint32_t keep[5] = {0x0000ffffu, 0x00ff00ffu, 0x0f0f0f0fu,
-                            0x33333333u, 0x55555555u};
-  int s = 0;
-  for (int j = 16; j >= 1; j >>= 1, ++s) {
-    if (j >= t) continue;  // uniform: t is the same for every lane
-    const uint32_t k = keep[s];
-    const uint32_t o = __shfl_xor_sync(kFull, w, j);
-    // the upper row of a block pair takes the lower row's left block into
-    // its right block; the lower row the upper row's right block into its
-    // left block
-    w = (lane & j) ? ((w & ~k) | ((o >> j) & k)) : ((w & k) | ((o & k) << j));
-  }
-  if (i < n_words) out[i] = w;
+  const uint32_t w = i < n_words ? (__ldg(in + i) & low_bits(t)) : 0u;
+  const uint32_t o = transpose_lanes(w, t, threadIdx.x & 31);
+  if (i < n_words) out[i] = o;
 }
 
 bool valid_t(int t) { return t == 4 || t == 8 || t == 16 || t == 32; }
+
+using PackKernel = void (*)(const void*, uint32_t*, int64_t, int64_t, int64_t,
+                            int64_t, int64_t, int, int);
+
+template <int E>
+PackKernel pack_for_t(int t) {
+  switch (t) {
+    case 4: return pack_dense_kernel<E, 4>;
+    case 8: return pack_dense_kernel<E, 8>;
+    case 16: return pack_dense_kernel<E, 16>;
+    case 32: return pack_dense_kernel<E, 32>;
+    default: return nullptr;
+  }
+}
+
+PackKernel pack_for(int elem, int t) {
+  switch (elem) {
+    case 0: return pack_for_t<0>(t);
+    case 1: return pack_for_t<1>(t);
+    case 2: return pack_for_t<2>(t);
+    default: return nullptr;
+  }
+}
 
 unsigned blocks_for(int64_t n, int per_block) {
   return static_cast<unsigned>((n + per_block - 1) / per_block);
@@ -159,26 +279,21 @@ int pack_rows(const void* x, int elem, void* out, int64_t n, int D, int t,
 // x: [n, m] entries of type elem; out: uint32[ceil(n / t), ceil(m / t), t].
 int pack_dense(const void* x, int elem, void* out, int64_t n, int64_t m,
                int t, int col_major, void* stream) {
-  if (!valid_t(t) || elem < 0 || elem > 2)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const PackKernel k = pack_for(elem, t);
+  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t R = (n + t - 1) / t;
   const int64_t C = (m + t - 1) / t;
   if (R <= 0 || C <= 0) return 0;
-  const int64_t n_strips = (C * t + 31) / 32;
-  const unsigned blocks = blocks_for(R * n_strips, kWarps);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint32_t* o = static_cast<uint32_t*>(out);
-  if (elem == 0)
-    pack_dense_kernel<<<blocks, kThreads, 0, s>>>(
-        static_cast<const uint8_t*>(x), o, n, m, t, R, C, n_strips,
-        col_major);
-  else if (elem == 1)
-    pack_dense_kernel<<<blocks, kThreads, 0, s>>>(
-        static_cast<const uint32_t*>(x), o, n, m, t, R, C, n_strips,
-        col_major);
-  else
-    pack_dense_kernel<<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(x), o, n, m, t, R, C, n_strips, col_major);
+  const int bytes = elem == 0 ? 1 : 4;
+  const int64_t run = std::max(kPackRunBytes / bytes, 32);
+  const int64_t n_runs = (C * t + run - 1) / run;
+  const int64_t n_blocks32 = (R * t + 31) / 32;
+  const int aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                      (m * bytes) % 16 == 0;
+  k<<<blocks_for(n_blocks32 * n_runs, kWarps), kThreads, 0,
+      static_cast<cudaStream_t>(stream)>>>(x, static_cast<uint32_t*>(out), n,
+                                           m, R, C, n_runs, aligned,
+                                           col_major);
   return static_cast<int>(cudaGetLastError());
 }
 

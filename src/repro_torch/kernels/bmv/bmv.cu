@@ -10,25 +10,19 @@
 // All four walk the B2SR CSR-over-tiles arrays directly: tile_row_ptr
 // int32[R+1], tile_col_idx int32[nT], bit_tiles uint32[nT, t]. The TPU
 // kernels needed an ELL slab per static shape (and one launch per
-// bucket); a warp here loops over tiles instead (pull: its own row's;
-// push, bmv_bff and bmv_bbf: a work item's, a run of one row's tiles),
-// so there is no padding and one launch per step (bmv_bff: two when a row
+// bucket); a warp here takes a work item, a run of one row's tiles, so
+// there is no padding and one launch per step (bmv_bff: two when a row
 // is cut).
 //
 // --- bmv_bbb_push / bmv_bbb_pull ------------------------------------------
 //
 // Inputs: the packed frontier x uint32[C] and the mask uint32[R]; output
-// uint32[R].
+// uint32[R], zeroed by the wrapper.
 //
-// Pull: one warp per tile-row. Lanes stride over the row's tiles; a lane
-// gathers xw = x[col] and, only when xw != 0, loads the tile's t words
-// (16-byte vector loads) and sets bit r of its partial word if
-// tile[r] & xw != 0. A warp OR-reduce (__reduce_or_sync) merges lanes.
-// It skips rows with no allowed lane and stops a row as soon as every
-// allowed lane is set.
-//
-// Push: work items, as bmv_bbf takes them (runs of at most 256 of a
-// row's tiles, one warp each; the registry passes the cut it keeps for
+// Push and pull compute one function (the reference's pull kernel is the
+// masked push with an early exit) and share one walk, bbb_walk below,
+// over work items as bmv_bbf takes them (runs of at most 256 of a row's
+// tiles, one warp each; the registry passes both the cut it keeps for
 // bmv_bbf), so a hub tile-row spreads over many warps: one warp per
 // tile-row put R-MAT scale 21's tile-row 0, 40,500 tiles, on one warp,
 // 1,266 dependent steps of column index, x word and tile. The warp first
@@ -37,20 +31,35 @@
 // words, a ballot of the non-zero ones, and only those tiles read, 32 / t
 // at a time, lane (g, r) holding word r of the g-th; the lane notes
 // whether word r & xw != 0, and a ballot folds the lane groups into the
-// item's hit word; after each 128 tiles the item stops once every
-// allowed lane is set (as pull does), or, in a cut row, once the row's
-// word, into which its items OR their hits, holds every allowed lane: a
-// hub row's items would otherwise each walk until their own tiles set
-// every lane. An item that is its whole row stores (hits & allowed);
-// the items of a cut row atomicOr theirs into the output, zeroed by the
-// wrapper: OR is order-free and the mask distributes over it, so the
-// result is the same bits whatever the cut and the order.
+// item's hit word. Every few batches of 32 tiles the item stops once
+// every allowed lane is set, or, in a cut row, once the row's word, into
+// which its items OR their hits, holds every allowed lane: a hub row's
+// items would otherwise each walk until their own tiles set every lane.
+// An item that is its whole row stores (hits & allowed); the items of a
+// cut row atomicOr theirs into the output: OR is order-free and the mask
+// distributes over it, so the result is the same bits whatever the cut
+// and the order.
+//
+// The two differ in cadence (the Walk parameters below) and in one
+// input. Both load 4 batches' column indices and x words at once, so
+// the next batches' loads are in flight while one is worked on. Push,
+// which the direction policy runs on sparse frontiers, tests its exit
+// and shares a cut row's word after the 4. Pull tests its exit after
+// every batch and shares after every batch once the item has a hit
+// (every 8 before): on a dense frontier a hub row's items stop as soon
+// as together they have set its lanes. Pull also takes the lanes that
+// some tile of each row can set (kernels/items.py row_lanes, kept by the
+// registry): a lane no tile can set, as an isolated vertex's, would keep
+// its row walking to the end on every step, and R-MAT's tile-rows mostly
+// hold one. What pull still reads on a dense frontier is mostly rows
+// whose last allowed lane meets its first hit deep in the row: the
+// stored order gives no shortcut to it.
 //
 // Bound: device-memory bytes. Per tile the work is t ANDs against a
 // 4t-byte read, far below the card's operations-per-byte line; skipping
-// tiles whose frontier word is zero is what keeps a sparse push frontier
-// from reading the whole graph, and the mask skip and early exit what
-// keep a late, nearly visited one from it.
+// tiles whose frontier word is zero is what keeps a sparse frontier from
+// reading the whole graph, and the mask skip and early exit what keep a
+// late, nearly visited one from it.
 //
 // Bit-exactness of the early exits: the accumulators only ever OR
 // (hits & allowed), so once one equals `allowed` the tiles not yet read
@@ -67,82 +76,6 @@ constexpr unsigned kFull = 0xffffffffu;
 template <int T>
 __device__ __forceinline__ constexpr uint32_t lane_mask() {
   return T == 32 ? 0xffffffffu : ((1u << T) - 1u);
-}
-
-// Bit r of the result is set iff tile word r shares a bit with xw.
-template <int T>
-__device__ __forceinline__ uint32_t tile_hits(const uint32_t* __restrict__ tile,
-                                              uint32_t xw) {
-  uint32_t hit = 0;
-  const uint4* v = reinterpret_cast<const uint4*>(tile);
-#pragma unroll
-  for (int q = 0; q < T / 4; ++q) {
-    const uint4 w = __ldg(v + q);
-    hit |= static_cast<uint32_t>((w.x & xw) != 0) << (4 * q);
-    hit |= static_cast<uint32_t>((w.y & xw) != 0) << (4 * q + 1);
-    hit |= static_cast<uint32_t>((w.z & xw) != 0) << (4 * q + 2);
-    hit |= static_cast<uint32_t>((w.w & xw) != 0) << (4 * q + 3);
-  }
-  return hit;
-}
-
-template <int T>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-bmv_bbb_pull_kernel(const int32_t* __restrict__ row_ptr,
-                    const int32_t* __restrict__ col_idx,
-                    const uint32_t* __restrict__ tiles,
-                    const uint32_t* __restrict__ x,
-                    const uint32_t* __restrict__ mask,
-                    uint32_t* __restrict__ out, int n_rows, int complement) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_rows) return;  // uniform across the warp
-  const uint32_t m = mask[row];
-  const uint32_t allowed = (complement ? ~m : m) & lane_mask<T>();
-  uint32_t acc = 0;
-  if (allowed) {
-    const int end = row_ptr[row + 1];
-    for (int k0 = row_ptr[row]; k0 < end; k0 += 32) {
-      const int k = k0 + lane;
-      uint32_t hit = 0;
-      if (k < end) {
-        const uint32_t xw = __ldg(x + col_idx[k]);
-        if (xw) hit = tile_hits<T>(tiles + static_cast<size_t>(k) * T, xw);
-      }
-      // acc is warp-uniform, so the exit below is taken by all lanes at once
-      acc |= __reduce_or_sync(kFull, hit & allowed);
-      if (acc == allowed) break;
-    }
-  }
-  if (lane == 0) out[row] = acc;
-}
-
-using Kernel = void (*)(const int32_t*, const int32_t*, const uint32_t*,
-                        const uint32_t*, const uint32_t*, uint32_t*, int, int);
-
-Kernel pull_for(int t) {
-  switch (t) {
-    case 4: return bmv_bbb_pull_kernel<4>;
-    case 8: return bmv_bbb_pull_kernel<8>;
-    case 16: return bmv_bbb_pull_kernel<16>;
-    case 32: return bmv_bbb_pull_kernel<32>;
-    default: return nullptr;
-  }
-}
-
-int launch(Kernel k, const void* row_ptr, const void* col_idx,
-           const void* tiles, const void* x, const void* mask, void* out,
-           int n_rows, int complement, void* stream) {
-  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows <= 0) return 0;
-  const dim3 block(32 * kWarpsPerBlock);
-  const dim3 grid((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  k<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(row_ptr), static_cast<const int32_t*>(col_idx),
-      static_cast<const uint32_t*>(tiles), static_cast<const uint32_t*>(x),
-      static_cast<const uint32_t*>(mask), static_cast<uint32_t*>(out), n_rows,
-      complement);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -220,6 +153,33 @@ constexpr int kUnroll = 4;
 constexpr int kCountBatches = 4;
 constexpr int kCountUnroll = 8;
 constexpr int kCountBlocksPerSM = 6;
+// The cadence of push's and pull's walk (bbb_walk): batches of 32 tiles
+// whose column indices and x words are loaded together, batches between
+// two exit tests, between two shares of a cut row's word once the item
+// has a hit (and before), live tiles read at once, and the blocks per SM
+// asked of the compiler (push: bmv_bbf's).
+// Pull's were picked with tools/bmv_variants.py --kernel pull (R-MAT
+// scale 21, t = 32, one BFS's 8 frontiers, the registry's cut and lane
+// occupancy; NVIDIA H100 80GB HBM3, 700.00 W; mean ms per launch, in
+// order and reversed): these constants 0.259, 0.258; exit every 2 or 4
+// batches 0.266, 0.259 and 0.261, 0.261; share every 2 or 4 batches
+// 0.265, 0.272 and 0.286, 0.292 (the dense fourth iteration 1.064 and
+// 1.241 against 0.959); share every batch before a hit too 0.311, 0.319
+// (the sparse first iteration 0.263 against 0.150), every 4 0.285,
+// 0.287; groups of 1 or 2 batches 0.279, 0.291 and 0.287, 0.283; 4 live
+// tiles at once 0.323, 0.298; 4 or 8 blocks per SM 0.294, 0.303 and
+// 0.305, 0.313; cuts of 64 and 1,024 tiles 0.379, 0.389 and 0.253,
+// 0.245 (256 is the cut push and bmv_bbf keep); no lane occupancy 0.317,
+// 0.323; push on the same inputs 0.352, 0.369.
+constexpr int kPushGroup = 4;
+constexpr int kPushExit = 4;
+constexpr int kPushShare = 4;
+constexpr int kPullGroup = 4;
+constexpr int kPullExit = 1;
+constexpr int kPullShare = 1;
+constexpr int kPullShareIdle = 8;
+constexpr int kPullUnroll = 8;
+constexpr int kPullBlocksPerSM = 6;
 
 // (x) and (+) of each mode. The products are rounded on their own (no
 // fused multiply-add), as the plain version rounds them; min and max
@@ -376,37 +336,36 @@ bmv_bff_merge_kernel(const int32_t* __restrict__ cut_row,
   out[static_cast<int64_t>(cut_row[c]) * T + r] = y;
 }
 
-// The column indices, then the x words, of kCountBatches batches of 32
-// tiles from kb0 (of an item ending at k1), each issued together; lane l
-// holds those of tile kb0 + 32 b + l (x word 0 past the item's end).
+// The column indices, then the x words, of NB batches of 32 tiles from
+// kb0 (of an item ending at k1), each issued together; lane l holds
+// those of tile kb0 + 32 b + l (x word 0 past the item's end).
+template <int NB>
 __device__ __forceinline__ void load_batches(
     const int32_t* __restrict__ col_idx, const uint32_t* __restrict__ x,
-    int kb0, int k1, int lane, uint32_t (&xw)[kCountBatches]) {
-  int col[kCountBatches];
+    int kb0, int k1, int lane, uint32_t (&xw)[NB]) {
+  int col[NB];
 #pragma unroll
-  for (int b = 0; b < kCountBatches; ++b) {
+  for (int b = 0; b < NB; ++b) {
     const int k = kb0 + 32 * b + lane;
     col[b] = k < k1 ? __ldg(col_idx + k) : -1;
   }
 #pragma unroll
-  for (int b = 0; b < kCountBatches; ++b)
-    xw[b] = col[b] >= 0 ? __ldg(x + col[b]) : 0u;
+  for (int b = 0; b < NB; ++b) xw[b] = col[b] >= 0 ? __ldg(x + col[b]) : 0u;
 }
 
 // The live tiles (bits of `live`, a warp ballot of the x words xw) of
-// the batch of 32 tiles from kb, G = 32 / T at a time (kCountUnroll
-// steps' loads issued together), lane (g, r) reading word r of the g-th.
-// Calls f(word, x word) for every word a lane read (0 past the live
-// tiles).
-template <int T, typename F>
+// the batch of 32 tiles from kb, G = 32 / T at a time (U steps' loads
+// issued together), lane (g, r) reading word r of the g-th. Calls
+// f(word, x word) for every word a lane read (0 past the live tiles).
+template <int T, int U, typename F>
 __device__ __forceinline__ void read_live(const uint32_t* __restrict__ tiles,
                                           int kb, uint32_t live, uint32_t xw,
                                           int g, int r, F&& f) {
   constexpr int G = 32 / T;
   while (live) {  // uniform: the same mask in every lane
-    uint32_t tw[kCountUnroll], xv[kCountUnroll];
+    uint32_t tw[U], xv[U];
 #pragma unroll
-    for (int u = 0; u < kCountUnroll; ++u) {
+    for (int u = 0; u < U; ++u) {
       // group g takes the g-th of the next G live tiles
       uint32_t m = live;
       for (int q = 0; q < g; ++q) m &= m - 1;
@@ -418,7 +377,7 @@ __device__ __forceinline__ void read_live(const uint32_t* __restrict__ tiles,
       tw[u] = j >= 0 ? __ldg(tiles + k) : 0u;
     }
 #pragma unroll
-    for (int u = 0; u < kCountUnroll; ++u) f(tw[u], xv[u]);
+    for (int u = 0; u < U; ++u) f(tw[u], xv[u]);
   }
 }
 
@@ -441,12 +400,12 @@ bmv_bbf_kernel(const int32_t* __restrict__ col_idx,
   int acc = 0;
   for (int kb0 = k0; kb0 < k1; kb0 += 32 * kCountBatches) {
     uint32_t xw[kCountBatches];
-    load_batches(col_idx, x, kb0, k1, lane, xw);
+    load_batches<kCountBatches>(col_idx, x, kb0, k1, lane, xw);
 #pragma unroll
     for (int b = 0; b < kCountBatches; ++b)
-      read_live<T>(tiles, kb0 + 32 * b, __ballot_sync(kFull, xw[b] != 0),
-                   xw[b], g, r,
-                   [&](uint32_t w, uint32_t xv) { acc += __popc(w & xv); });
+      read_live<T, kCountUnroll>(
+          tiles, kb0 + 32 * b, __ballot_sync(kFull, xw[b] != 0), xw[b], g, r,
+          [&](uint32_t w, uint32_t xv) { acc += __popc(w & xv); });
   }
 #pragma unroll
   for (int o = T; o < 32; o *= 2) acc += __shfl_xor_sync(kFull, acc, o);
@@ -457,21 +416,29 @@ bmv_bbf_kernel(const int32_t* __restrict__ col_idx,
   }
 }
 
-// Push over work items (see the head of this file): bmv_bbf's batches,
-// each folded into the item's hit word and tested against the allowed
-// lanes of its row.
-template <int T>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock, kCountBlocksPerSM)
-bmv_bbb_push_kernel(const int32_t* __restrict__ col_idx,
-                    const uint32_t* __restrict__ tiles,
-                    const int32_t* __restrict__ item_row,
-                    const int32_t* __restrict__ item_begin,
-                    const int32_t* __restrict__ item_slot,
-                    const uint32_t* __restrict__ x,
-                    const uint32_t* __restrict__ mask,
-                    uint32_t* __restrict__ out, int n_items,
-                    int complement) {
+// Push's and pull's walk over work items (see the head of this file),
+// each batch of 32 tiles folded into the item's hit word. W is the
+// cadence: W::kGroup batches' column indices and x words are loaded
+// together (so the batches after the current one are in flight while it
+// is worked on); the item tests its exit after every W::kExit batches
+// and, in a cut row, shares its hits through out after every W::kShare
+// batches once it has a hit (every W::kShareIdle before: on a sparse
+// frontier few items ever hit, and their shares would only queue on a
+// hub row's word); W::kUnroll live tiles are read at once. lanes (null
+// for push) narrows the allowed lanes to those some tile of the row can
+// set.
+template <int T, typename W>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock, W::kBlocksPerSM)
+bbb_walk(const int32_t* __restrict__ col_idx,
+         const uint32_t* __restrict__ tiles,
+         const int32_t* __restrict__ item_row,
+         const int32_t* __restrict__ item_begin,
+         const int32_t* __restrict__ item_slot,
+         const uint32_t* __restrict__ x, const uint32_t* __restrict__ mask,
+         const uint32_t* __restrict__ lanes, uint32_t* __restrict__ out,
+         int n_items, int complement) {
   constexpr int G = 32 / T;
+  constexpr int NB = W::kGroup;
   const int lane = threadIdx.x & 31;
   const int g = lane / T;
   const int r = lane - g * T;
@@ -483,39 +450,78 @@ bmv_bbb_push_kernel(const int32_t* __restrict__ col_idx,
     const uint32_t m = __ldg(mask + row);
     allowed &= complement ? ~m : m;
   }
+  // a lane no tile of the row can set is not waited for
+  if (lanes != nullptr) allowed &= __ldg(lanes + row);
   if (allowed == 0) return;  // uniform: nothing can land; out is zeroed
   const int k0 = item_begin[item];
   const int k1 = item_begin[item + 1];
   const bool cut = item_slot[item] >= 0;
   uint32_t acc = 0;  // warp-uniform: hits & allowed
-  for (int kb0 = k0; kb0 < k1; kb0 += 32 * kCountBatches) {
-    uint32_t xw[kCountBatches];
-    load_batches(col_idx, x, kb0, k1, lane, xw);
+  // a cadence of whole groups (push's) tests after a group's last batch;
+  // any other counts the batches walked
+  constexpr bool kByGroup = W::kExit == NB && W::kShare == NB &&
+                            W::kShareIdle == NB;
+  int done = 0;  // batches walked, warp-uniform
+  for (int kb0 = k0; kb0 < k1; kb0 += 32 * NB) {
+    uint32_t xw[NB];
+    load_batches<NB>(col_idx, x, kb0, k1, lane, xw);
+    bool stop = false;  // uniform
 #pragma unroll
-    for (int b = 0; b < kCountBatches; ++b) {
+    for (int b = 0; b < NB; ++b) {  // past the item's end xw is 0
       bool hit = false;  // lane (g, r): word r of a tile it read met x
-      read_live<T>(tiles, kb0 + 32 * b, __ballot_sync(kFull, xw[b] != 0),
-                   xw[b], g, r,
-                   [&](uint32_t tw, uint32_t xv) { hit |= (tw & xv) != 0; });
+      read_live<T, W::kUnroll>(
+          tiles, kb0 + 32 * b, __ballot_sync(kFull, xw[b] != 0), xw[b], g,
+          r, [&](uint32_t tw, uint32_t xv) { hit |= (tw & xv) != 0; });
       const uint32_t bits = __ballot_sync(kFull, hit);  // bit g * T + r
 #pragma unroll
       for (int q = 0; q < G; ++q) acc |= (bits >> (q * T)) & allowed;
+      if constexpr (!kByGroup) ++done;
+      if ((kByGroup ? b == NB - 1 : done % W::kExit == 0) &&
+          acc == allowed) {
+        stop = true;
+        break;
+      }
+      // the items of a cut row share their hits through out: an item ORs
+      // its own in and stops once the row's allowed lanes are all set
+      // (its tiles not yet read could set no other bit)
+      if (cut && (kByGroup ? b == NB - 1
+                           : done % (acc ? W::kShare : W::kShareIdle) == 0)) {
+        uint32_t seen = 0;
+        if (lane == 0) seen = atomicOr(out + row, acc);
+        if ((__shfl_sync(kFull, seen, 0) | acc) == allowed) {
+          stop = true;
+          break;
+        }
+      }
     }
-    if (acc == allowed) break;  // uniform
-    // the items of a cut row share their hits through out: an item ORs
-    // its own in and stops once the row's allowed lanes are all set (its
-    // tiles not yet read could set no other bit)
-    if (cut) {
-      uint32_t seen = 0;
-      if (lane == 0) seen = atomicOr(out + row, acc);
-      if ((__shfl_sync(kFull, seen, 0) | acc) == allowed) break;
-    }
+    if (stop) break;
   }
   if (lane == 0) {
     if (!cut) out[row] = acc;
     else if (acc) atomicOr(out + row, acc);
   }
 }
+
+// Push: 4 batches a load, its exit and its share after the 4.
+struct PushWalk {
+  static constexpr int kGroup = kPushGroup;
+  static constexpr int kExit = kPushExit;
+  static constexpr int kShare = kPushShare;
+  static constexpr int kShareIdle = kPushShare;
+  static constexpr int kUnroll = kCountUnroll;
+  static constexpr int kBlocksPerSM = kCountBlocksPerSM;
+};
+
+// Pull: push's loads; its exit after every batch, its share after every
+// batch once it has a hit, every 8 before.
+struct PullWalk {
+  static constexpr int kGroup = kPullGroup;
+  static constexpr int kExit = kPullExit;
+  static constexpr int kShare = kPullShare;
+  static constexpr int kShareIdle = kPullShareIdle;
+  static constexpr int kUnroll = kPullUnroll;
+  static constexpr int kBlocksPerSM = kPullBlocksPerSM;
+};
 
 using BffKernel = void (*)(const int32_t*, const uint32_t*, const int32_t*,
                            const int32_t*, const int32_t*, const float*,
@@ -566,16 +572,18 @@ BffMergeKernel bff_merge_for(int t, int mode) {
   }
 }
 
-using PushKernel = void (*)(const int32_t*, const uint32_t*, const int32_t*,
+using WalkKernel = void (*)(const int32_t*, const uint32_t*, const int32_t*,
                             const int32_t*, const int32_t*, const uint32_t*,
-                            const uint32_t*, uint32_t*, int, int);
+                            const uint32_t*, const uint32_t*, uint32_t*, int,
+                            int);
 
-PushKernel push_for(int t) {
+template <typename W>
+WalkKernel walk_for(int t) {
   switch (t) {
-    case 4: return bmv_bbb_push_kernel<4>;
-    case 8: return bmv_bbb_push_kernel<8>;
-    case 16: return bmv_bbb_push_kernel<16>;
-    case 32: return bmv_bbb_push_kernel<32>;
+    case 4: return bbb_walk<4, W>;
+    case 8: return bbb_walk<8, W>;
+    case 16: return bbb_walk<16, W>;
+    case 32: return bbb_walk<32, W>;
     default: return nullptr;
   }
 }
@@ -594,6 +602,24 @@ dim3 grid_for(int n) {
   return dim3((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
+int launch_walk(WalkKernel k, const void* col_idx, const void* tiles,
+                const void* item_row, const void* item_begin,
+                const void* item_slot, int n_items, const void* x,
+                const void* mask, const void* lanes, void* out,
+                int complement, void* stream) {
+  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_items <= 0) return 0;
+  k<<<grid_for(n_items), 32 * kWarpsPerBlock, 0,
+      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(col_idx), static_cast<const uint32_t*>(tiles),
+      static_cast<const int32_t*>(item_row),
+      static_cast<const int32_t*>(item_begin),
+      static_cast<const int32_t*>(item_slot), static_cast<const uint32_t*>(x),
+      static_cast<const uint32_t*>(mask), static_cast<const uint32_t*>(lanes),
+      static_cast<uint32_t*>(out), n_items, complement);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -604,25 +630,21 @@ int bmv_bbb_push(const void* col_idx, const void* tiles, const void* item_row,
                  const void* item_begin, const void* item_slot, int n_items,
                  const void* x, const void* mask, void* out, int t,
                  int complement, void* stream) {
-  const PushKernel k = push_for(t);
-  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_items <= 0) return 0;
-  k<<<grid_for(n_items), 32 * kWarpsPerBlock, 0,
-      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(col_idx), static_cast<const uint32_t*>(tiles),
-      static_cast<const int32_t*>(item_row),
-      static_cast<const int32_t*>(item_begin),
-      static_cast<const int32_t*>(item_slot), static_cast<const uint32_t*>(x),
-      static_cast<const uint32_t*>(mask), static_cast<uint32_t*>(out), n_items,
-      complement);
-  return static_cast<int>(cudaGetLastError());
+  return launch_walk(walk_for<PushWalk>(t), col_idx, tiles, item_row,
+                     item_begin, item_slot, n_items, x, mask, nullptr, out,
+                     complement, stream);
 }
 
-int bmv_bbb_pull(const void* row_ptr, const void* col_idx, const void* tiles,
-                 const void* x, const void* mask, void* out, int n_rows, int t,
-                 int complement, void* stream) {
-  return launch(pull_for(t), row_ptr, col_idx, tiles, x, mask, out, n_rows,
-                complement, stream);
+// bmv_bbb_push's arguments, mask not null, and lanes: uint32[R], the
+// lanes some tile of each row can set (or a superset).
+int bmv_bbb_pull(const void* col_idx, const void* tiles, const void* item_row,
+                 const void* item_begin, const void* item_slot, int n_items,
+                 const void* x, const void* mask, const void* lanes,
+                 void* out, int t, int complement, void* stream) {
+  if (mask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_walk(walk_for<PullWalk>(t), col_idx, tiles, item_row,
+                     item_begin, item_slot, n_items, x, mask, lanes, out,
+                     complement, stream);
 }
 
 // mode: 0 sum, 1 min_plus, 2 max_times; ident is the mode's identity.

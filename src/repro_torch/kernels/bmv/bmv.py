@@ -5,13 +5,12 @@
   bmv_bff       replaces ``bmv_bin_full_full_pallas`` (semiring mxv)
   bmv_bbf       replaces ``bmv_bin_bin_full_pallas`` (count mxv)
 
-All take the B2SR CSR-over-tiles arrays as they are (no ELL padding).
-``bmv_bbb_push``, ``bmv_bff`` and ``bmv_bbf`` cut each tile-row into work
-items
-(``kernels/items.py``), runs of its tiles that a warp takes each, so a
-hub tile-row spreads over many warps; a caller may pass the items it
-keeps for the matrix (the ``b2sr_cuda`` rows do). Any cut gives the same
-result (the sum mode of ``bmv_bff`` up to float32 rounding).
+All take the B2SR CSR-over-tiles arrays as they are (no ELL padding) and
+cut each tile-row into work items (``kernels/items.py``), runs of its
+tiles that a warp takes each, so a hub tile-row spreads over many warps;
+a caller may pass the items it keeps for the matrix (the ``b2sr_cuda``
+rows do; push, pull and ``bmv_bbf`` share one cut). Any cut gives the
+same result (the sum mode of ``bmv_bff`` up to float32 rounding).
 
 A CUDA tensor goes to the kernel: a build or launch failure raises. A
 CPU tensor goes to the plain version in ``ref.py``. Each wrapper counts
@@ -30,12 +29,13 @@ import torch
 from repro_torch.core.words import WORD
 from repro_torch.kernels import common
 from repro_torch.kernels.bmv import ref
-from repro_torch.kernels.items import WorkItems, check_items, cut_rows
+from repro_torch.kernels.items import (WorkItems, check_items, cut_rows,
+                                      row_lanes)
 
 SOURCE = Path(__file__).with_name("bmv.cu")
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_PULL_ARGS = [_PTR] * 6 + [_INT] * 3 + [_PTR]
 _PUSH_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 3 + [_INT] * 2 + [_PTR]
+_PULL_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 4 + [_INT] * 2 + [_PTR]
 _BFF_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 3 + [_INT] + [_PTR] * 3 + \
     [_INT] * 2 + [_FLOAT] * 2 + [_PTR]
 _BBF_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 2 + [_INT] + [_PTR]
@@ -43,9 +43,10 @@ _BBF_ARGS = [_PTR] * 5 + [_INT] + [_PTR] * 2 + [_INT] + [_PTR]
 #: gathers an entry of x per set bit of its word); equal to
 #: ``spmm.DENSE_ITEM_WORK``, so the two kernels share one cut
 BFF_ITEM_WORK = 2048
-#: work of a ``bmv_bbf`` and a ``bmv_bbb_push`` item, in tiles (a warp
-#: reads 32 column indices and x words at a time, whatever the tiles'
-#: bits); equal to ``spmm.BBF_ITEM_WORK``, so the kernels share one cut
+#: work of a ``bmv_bbf``, a ``bmv_bbb_push`` and a ``bmv_bbb_pull`` item,
+#: in tiles (a warp reads 32 column indices and x words at a time,
+#: whatever the tiles' bits); equal to ``spmm.BBF_ITEM_WORK``, so the
+#: kernels share one cut
 BBF_ITEM_WORK = 256
 #: ``mode`` argument of the ``bmv_bff`` kernel
 BFF_MODE_IDS = {"sum": 0, "min_plus": 1, "max_times": 2}
@@ -84,6 +85,29 @@ def _check(tile_row_ptr, tile_col_idx, bit_tiles, x, mask, t: int,
         raise ValueError("bit_tiles must be 16-byte aligned (vector loads)")
 
 
+def _bbb_step(kernel, argtypes, tile_row_ptr, tile_col_idx, bit_tiles, x,
+              mask, t: int, complement: bool, items: Optional[WorkItems],
+              *lanes) -> torch.Tensor:
+    """Launch push's or pull's kernel (one walk, two cadences) on CUDA
+    tensors: int32[R] packed words, zero where nothing lands. ``lanes``:
+    pull's lane occupancy pointer (push takes none)."""
+    _check(tile_row_ptr, tile_col_idx, bit_tiles, x, mask, t)
+    n_rows = tile_row_ptr.shape[0] - 1
+    out = torch.zeros(n_rows, dtype=WORD, device=x.device)
+    if items is None:
+        items = cut_rows(tile_row_ptr, bit_tiles, BBF_ITEM_WORK)
+    check_items(items, x.device)
+    if items.n_items:
+        common.call(SOURCE, kernel.__name__, argtypes, x,
+                    tile_col_idx.data_ptr(), bit_tiles.data_ptr(),
+                    items.row.data_ptr(), items.begin.data_ptr(),
+                    items.slot.data_ptr(), items.n_items, x.data_ptr(),
+                    None if mask is None else mask.data_ptr(), *lanes,
+                    out.data_ptr(), t, int(complement))
+        kernel.launches += 1
+    return out
+
+
 def bmv_bbb_push(tile_row_ptr: torch.Tensor, tile_col_idx: torch.Tensor,
                  bit_tiles: torch.Tensor, x: torch.Tensor,
                  mask: Optional[torch.Tensor], *, t: int,
@@ -98,42 +122,38 @@ def bmv_bbb_push(tile_row_ptr: torch.Tensor, tile_col_idx: torch.Tensor,
     if not x.is_cuda:
         return ref.bmv_bbb_push(tile_row_ptr, tile_col_idx, bit_tiles, x,
                                 mask, t=t, complement=complement)
-    _check(tile_row_ptr, tile_col_idx, bit_tiles, x, mask, t)
-    n_rows = tile_row_ptr.shape[0] - 1
-    out = torch.zeros(n_rows, dtype=WORD, device=x.device)
-    if items is None:
-        items = cut_rows(tile_row_ptr, bit_tiles, BBF_ITEM_WORK)
-    check_items(items, x.device)
-    if items.n_items:
-        common.call(SOURCE, "bmv_bbb_push", _PUSH_ARGS, x,
-                    tile_col_idx.data_ptr(), bit_tiles.data_ptr(),
-                    items.row.data_ptr(), items.begin.data_ptr(),
-                    items.slot.data_ptr(), items.n_items, x.data_ptr(),
-                    None if mask is None else mask.data_ptr(),
-                    out.data_ptr(), t, int(complement))
-        bmv_bbb_push.launches += 1
-    return out
+    return _bbb_step(bmv_bbb_push, _PUSH_ARGS, tile_row_ptr, tile_col_idx,
+                     bit_tiles, x, mask, t, complement, items)
 
 
 def bmv_bbb_pull(tile_row_ptr: torch.Tensor, tile_col_idx: torch.Tensor,
                  bit_tiles: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
-                 *, t: int, complement: bool = True) -> torch.Tensor:
-    """Pull BFS step with per-row early exit; bit-exact with push."""
+                 *, t: int, complement: bool = True,
+                 items: Optional[WorkItems] = None,
+                 lanes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pull BFS step: push's function under a mask, with push's walk and
+    an exit test after every batch of 32 tiles; bit-exact with push.
+
+    ``items`` (default: cut by tiles, :data:`BBF_ITEM_WORK`) must be a cut
+    of these arrays, and ``lanes`` (default: computed here) their
+    :func:`~repro_torch.kernels.items.row_lanes` or a superset of it: a
+    row stops once the allowed lanes among them are set.
+    """
     if mask is None:
         raise ValueError("the pull step needs a mask (nothing to exit on)")
     if not x.is_cuda:
         return ref.bmv_bbb_pull(tile_row_ptr, tile_col_idx, bit_tiles, x,
                                 mask, t=t, complement=complement)
-    _check(tile_row_ptr, tile_col_idx, bit_tiles, x, mask, t)
-    n_rows = tile_row_ptr.shape[0] - 1
-    out = torch.empty(n_rows, dtype=WORD, device=x.device)
-    if n_rows:
-        common.call(SOURCE, "bmv_bbb_pull", _PULL_ARGS, x,
-                    tile_row_ptr.data_ptr(), tile_col_idx.data_ptr(),
-                    bit_tiles.data_ptr(), x.data_ptr(), mask.data_ptr(),
-                    out.data_ptr(), n_rows, t, int(complement))
-        bmv_bbb_pull.launches += 1
-    return out
+    if lanes is None:
+        lanes = row_lanes(tile_row_ptr, bit_tiles)
+    if (lanes.device != x.device or lanes.dtype != WORD
+            or lanes.shape != mask.shape or not lanes.is_contiguous()):
+        raise ValueError(f"lanes must be contiguous int32{tuple(mask.shape)}"
+                         f" on {x.device}, got {lanes.dtype}"
+                         f"{tuple(lanes.shape)} on {lanes.device}")
+    return _bbb_step(bmv_bbb_pull, _PULL_ARGS, tile_row_ptr, tile_col_idx,
+                     bit_tiles, x, mask, t, complement, items,
+                     lanes.data_ptr())
 
 
 def bmv_bff(tile_row_ptr: torch.Tensor, tile_col_idx: torch.Tensor,

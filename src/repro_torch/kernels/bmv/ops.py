@@ -5,9 +5,10 @@ one function serves ``bucketed`` True and False (the bucketed slabs were
 a TPU static-shape device) and ``row_chunk`` is ignored, as the
 reference's ``b2sr_pallas`` rows ignore it: the outputs are the same.
 The dense and count rows apply a mask after the kernel, as the
-reference's rows do; the push, dense and count rows pass the work items
-kept with the stored orientation (``kernels/items.py``; push and count
-share one cut). Operands are made contiguous here:
+reference's rows do; every row passes the work items kept with the
+stored orientation (``kernels/items.py``; push, pull and count share
+one cut), and the pull row the tile-rows' lane occupancy kept beside
+them. Operands are made contiguous here:
 the kernels take dense arrays only.
 """
 
@@ -20,7 +21,7 @@ from repro_torch.core.ops import bff_setup
 from repro_torch.kernels.bmv.bmv import (BBF_ITEM_WORK, BFF_ITEM_WORK,
                                          bmv_bbb_pull, bmv_bbb_push, bmv_bbf,
                                          bmv_bff)
-from repro_torch.kernels.items import items_for
+from repro_torch.kernels.items import items_for, lanes_for
 
 #: semiring name -> ``bmv_bff`` mode; the boolean semiring has no kernel
 #: path, as in the reference's ``b2sr_pallas`` row
@@ -44,7 +45,9 @@ def _mxv_pull(g, xw, call):
     m = g.b2sr
     return bmv_bbb_pull(m.tile_row_ptr, m.tile_col_idx, m.bit_tiles,
                         xw.contiguous(), call.mask.contiguous(),
-                        t=m.tile_dim, complement=call.complement)
+                        t=m.tile_dim, complement=call.complement,
+                        items=items_for(g, BBF_ITEM_WORK),
+                        lanes=lanes_for(g))
 
 
 @register("mxv", "dense", "full", "b2sr_cuda", bucketed=BOTH, masked=BOTH)

@@ -11,7 +11,8 @@ items of a cut row themselves.
 
 A ``b2sr_cuda`` registry row cuts once per stored orientation and
 keeps the cut with it (:func:`items_for`); kernels whose budgets agree
-share one cut.
+share one cut. The pull step also keeps each tile-row's lane occupancy
+(:func:`lanes_for`): the lanes that some tile of the row can set.
 """
 
 from __future__ import annotations
@@ -20,10 +21,13 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.words import popcount
+from repro_torch.core.words import pack_bits, popcount
 
 #: tiles whose set bits a cut by bits counts at a time
 _POPCOUNT_CHUNK = 1 << 20
+#: tiles whose non-zero words :func:`row_lanes` counts at a time (512 MB
+#: of int32 counts at t = 32)
+_LANES_CHUNK = 1 << 22
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,3 +117,32 @@ def items_for(g, budget: int, by_bits: bool = False) -> WorkItems:
     if key not in cache:
         cache[key] = work_items(g.b2sr, budget, by_bits)
     return cache[key]
+
+
+def row_lanes(tile_row_ptr: torch.Tensor,
+              bit_tiles: torch.Tensor) -> torch.Tensor:
+    """int32[R] words: bit ``r`` of word ``i`` is set iff some tile of
+    tile-row ``i`` has a bit in its word ``r``. A clear lane is set by no
+    mxv over these arrays, so the pull step need not wait for it (a
+    vertex without in-edges, as R-MAT's isolated vertices, would keep
+    its row walking to the end)."""
+    dev = tile_row_ptr.device
+    n_tile_rows = tile_row_ptr.shape[0] - 1
+    counts = (tile_row_ptr[1:] - tile_row_ptr[:-1]).to(torch.int64)
+    rows = torch.repeat_interleave(torch.arange(n_tile_rows, device=dev),
+                                   counts)
+    seen = torch.zeros((n_tile_rows, bit_tiles.shape[1]), dtype=torch.int32,
+                       device=dev)
+    for s in range(0, bit_tiles.shape[0], _LANES_CHUNK):
+        seen.index_add_(0, rows[s:s + _LANES_CHUNK],
+                        (bit_tiles[s:s + _LANES_CHUNK] != 0).to(torch.int32))
+    return pack_bits(seen)
+
+
+def lanes_for(g) -> torch.Tensor:
+    """:func:`row_lanes` of ``g``'s B2SR, kept with its stored
+    orientation."""
+    cache = g.fwd.cache
+    if "row_lanes" not in cache:
+        cache["row_lanes"] = row_lanes(g.b2sr.tile_row_ptr, g.b2sr.bit_tiles)
+    return cache["row_lanes"]
