@@ -134,7 +134,9 @@ exits non-zero.
      the V the launcher chose and each V's time and registers, and
      ``spmm_bbf`` and ``pack_rows`` per launch beside their plain
      versions, the ``csr`` row and (``spmm_bbf``) cuSPARSE SpMM of the
-     unpacked 0/1 matrix.
+     unpacked 0/1 matrix; ``pack_rows`` also by its device time alone
+     (torch.profiler), on h itself as float32 entries (equal to the
+     packing of h > 0), and the wrapper's floor (a [32, 1] bool).
      In phases 15-16 the kernels' launch counts are set to 0 just before
      the phase's ``b2sr_cuda`` runs and read just after.
  17. timing: per kernel of phases 2-6 the median time of one launch (CUDA
@@ -177,7 +179,12 @@ graph, bit for bit with small-integer X and, with random X, within
 and (D > 32, small graphs) the same bits with every V; ``spmm_bbf``
 (the default work items, items of 3 tiles and of 5 set bits) and
 ``pack_rows`` (float32 and bool input) at D = 1, 7, 16, 33, 130 on the
-small graphs and at D = 16 on the full graph, ``pack_dense`` of
+small graphs and at D = 16 on the full graph, ``pack_rows`` also on
+[70, D] bool, uint8, int8, int32 and float32 entries (-0.0 and NaN among
+the float32) at the same D (16: the kernel's 16-byte loads, the others
+its scalar path) and on [70, 16] views with a storage offset (5 entries:
+the scalar path; 16 bytes: the 16-byte loads) at every tile dim,
+``pack_dense`` of
 each small graph's dense adjacency, row- and column-major (row-major also
 equal to the graph's own B2SR tiles), and of [70, m] bool, uint8, int8,
 int32 and float32 entries (-0.0 and NaN among the float32) at m = 1, 15,
@@ -269,6 +276,7 @@ FLOAT_TOL = 1e-4               # float-path logits, see phase_gnn
 PACK_SIDE = 32768              # pack_dense timing: [PACK_SIDE, PACK_SIDE]
 PACK_ROWS = 70                 # pack_dense checks: rows, widths, types
 PACK_WIDTHS = (1, 15, 17, 33, 100, 1024, 1040)
+PACK_DTYPES = ("bool", "uint8", "int8", "int32", "float32")  # entry types
 TRANSPOSE_CHUNK = 1 << 19      # tiles per plain bit_transpose call
 
 
@@ -308,6 +316,28 @@ def event_ms(fn, reps: int = REPS) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, reps: int = REPS):
+    """Median device time of one launch of the kernel whose name holds
+    ``kernel`` over ``reps`` calls of ``fn`` (torch.profiler, CUPTI); None
+    where three profiles in a row record no such launch (the profiler
+    now and then drops a window's device events, or some of them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if times:
+            return statistics.median(times)
+    return None
 
 
 def wrapper(name: str):
@@ -704,11 +734,11 @@ def check_bit_kernels(cases, max_err, bad) -> int:
     plain versions, bit for bit: spmm_bbf at D = 1, 7, 16, 33, 130 on the
     small graphs (with work items of 3 tiles and of 5 set bits too, so
     every row merges several items) and at D = 16 on the full graph;
-    pack_rows on [n, D]
-    float32 and bool inputs at the same widths; pack_dense of each small
+    pack_rows on [n, D] float32 and bool inputs at the same widths, and
+    on ``rows_inputs`` at every tile dim; pack_dense of each small
     graph's dense adjacency, row- and column-major, also against the
-    B2SR's own tiles; bit_transpose of every case's tiles. Returns the
-    number of checks."""
+    B2SR's own tiles, and of ``pack_inputs``; bit_transpose of every
+    case's tiles. Returns the number of checks."""
     import torch
     from repro_torch.core.b2sr import b2sr_to_coo, b2sr_to_packed_grid
     from repro_torch.kernels.bitpack import bitpack, ref as bref
@@ -764,43 +794,64 @@ def check_bit_kernels(cases, max_err, bad) -> int:
         record("pack_dense", uint_err(bitpack.pack_dense(x, t, col_major),
                                       bref.pack_dense(x, t, col_major)),
                label, t, col_major)
+    for (label, x), t in itertools.product(rows_inputs(gen), (4, 8, 16, 32)):
+        record("pack_rows", uint_err(bitpack.pack_rows(x, t),
+                                     bref.pack_rows(x, t)), label, t)
     return n_checks
 
 
-def pack_inputs(gen):
-    """pack_dense inputs beside the adjacencies: (label, [n, m] entries)
-    for each entry type at PACK_WIDTHS (rows not a multiple of 32; widths
-    whose rows start off 16 bytes, and runs past the last column, take
-    the kernel's scalar path), float32 with -0.0 and NaN, and contiguous
-    views with a storage offset (rows off 16 bytes, and on them)."""
+def pack_entries(gen, dtype, n, m):
+    """[n, m] 0/1-pattern entries of ``dtype`` on the card: about 30%
+    non-zero (values -3..3 where signed), float32 with -0.0 for about half
+    its zeros and a NaN at [0, -1]."""
     import torch
+    keep = torch.rand((n, m), generator=gen, device=DEVICE) < 0.3
+    v = torch.randint(-3, 4, (n, m), generator=gen, device=DEVICE)
+    if dtype == torch.bool:
+        return keep
+    if dtype == torch.uint8:
+        v = v.abs()
+    x = torch.where(keep, v, 0).to(dtype)
+    if dtype == torch.float32:
+        x[~keep & (torch.rand((n, m), generator=gen, device=DEVICE)
+                   < 0.5)] = -0.0
+        x[0, -1] = float("nan")
+    return x
 
-    def entries(dtype, n, m):
-        keep = torch.rand((n, m), generator=gen, device=DEVICE) < 0.3
-        v = torch.randint(-3, 4, (n, m), generator=gen, device=DEVICE)
-        if dtype == torch.bool:
-            return keep
-        if dtype == torch.uint8:
-            v = v.abs()
-        x = torch.where(keep, v, 0).to(dtype)
-        if dtype == torch.float32:
-            x[~keep & (torch.rand((n, m), generator=gen, device=DEVICE)
-                       < 0.5)] = -0.0
-            x[0, -1] = float("nan")
-        return x
 
-    dtypes = (torch.bool, torch.uint8, torch.int8, torch.int32,
-              torch.float32)
+def entry_inputs(gen, widths, offset_width):
+    """(label, [PACK_ROWS, m] entries) for each entry type at ``widths``
+    (70 rows: not a multiple of 32 or of any tile dim), and contiguous
+    [PACK_ROWS, offset_width] views with a storage offset of 5 entries
+    (rows off 16 bytes) and of 16 bytes."""
+    import torch
     n = PACK_ROWS
-    for dtype, m in itertools.product(dtypes, PACK_WIDTHS):
-        yield f"{str(dtype)[6:]}[{n}, {m}]", entries(dtype, n, m)
-    for dtype in dtypes:
-        m = 1040
-        flat = entries(dtype, 1, n * m + 64).flatten()
-        yield f"{str(dtype)[6:]} offset 5", flat[5:5 + n * m].view(n, m)
-        step = 16 // flat.element_size()
-        yield (f"{str(dtype)[6:]} offset 16 B",
-               flat[step:step + n * m].view(n, m))
+    for name, m in itertools.product(PACK_DTYPES, widths):
+        yield (f"{name}[{n}, {m}]",
+               pack_entries(gen, getattr(torch, name), n, m))
+    m = offset_width
+    for name in PACK_DTYPES:
+        flat = pack_entries(gen, getattr(torch, name), 1,
+                            n * m + 64).flatten()
+        for off in (5, 16 // flat.element_size()):
+            yield (f"{name}[{n}, {m}] offset {off}",
+                   flat[off:off + n * m].view(n, m))
+
+
+def pack_inputs(gen):
+    """pack_dense inputs beside the adjacencies: each entry type at
+    PACK_WIDTHS (widths whose rows start off 16 bytes, and runs past the
+    last column, take the kernel's scalar path), float32 with -0.0 and
+    NaN, and offset views of width 1,040."""
+    return entry_inputs(gen, PACK_WIDTHS, 1040)
+
+
+def rows_inputs(gen):
+    """pack_rows inputs beside the graphs' activations: each entry type at
+    GNN_WIDTHS (D = 16 takes the kernel's 16-byte loads, the other widths
+    its scalar path) and offset views of width 16 (5 entries: the scalar
+    path; 16 bytes: the 16-byte loads from a base with an offset)."""
+    return entry_inputs(gen, GNN_WIDTHS, 16)
 
 
 def one_row(m, r: int):
@@ -2348,12 +2399,27 @@ def phase_gnn(g, adj, deg, srcs):
     pack = {"name": "pack_rows",
             "ms": event_ms(lambda: bitpack.pack_rows(hb, t)),
             "plain_ms": event_ms(lambda: bref.pack_rows(hb, t), reps=3),
+            "device_ms": device_ms(lambda: bitpack.pack_rows(hb, t),
+                                   "pack_rows_kernel"),
             # a compare and an OR per entry
             **bound_row(hb.numel() + 4 * bm.words.numel(), 2 * hb.numel()),
             "library_ms": None, "csr_row_ms": None,
             "inputs": f"h > 0 of the hidden layer, bool [n, "
                       f"{cfg.d_hidden}]; no PyTorch call packs bits, no "
                       f"csr row"}
+    # the same shape as float32 entries: h itself (h != 0 is h > 0)
+    h32 = h1["b2sr_cuda"]
+    if not torch.equal(bitpack.pack_rows(h32, t), bm.words):
+        problems.append("pack_rows of float32 h != of h > 0")
+    pack["float32"] = {
+        "device_ms": device_ms(lambda: bitpack.pack_rows(h32, t),
+                               "pack_rows_kernel"),
+        **bound_row(4 * h32.numel() + 4 * bm.words.numel(), 2 * h32.numel())}
+    # the wrapper's floor: a launch with next to no work
+    tiny = torch.ones((32, 1), dtype=torch.bool, device=DEVICE)
+    pack["floor_ms"] = event_ms(lambda: bitpack.pack_rows(tiny, t))
+    pack["floor_device_ms"] = device_ms(lambda: bitpack.pack_rows(tiny, t),
+                                        "pack_rows_kernel")
     del x01, counts, hb
     dense_items = spmm.work_items(m, spmm.DENSE_ITEM_WORK, by_bits=True)
     torch.cuda.empty_cache()

@@ -19,8 +19,23 @@
 // on Hopper all three move far more bytes than they compute, so each is
 // laid out for coalesced loads and stores:
 //
-//   pack_rows: one thread per output word (c, j). It reads x[c*t + r, j]
-//   for r < t: at each r a warp reads 32 neighbouring entries of a row.
+//   pack_rows: a stream too ([2,097,152, 16] bool in, 4 MB of words out
+//   at t = 32). A warp takes 32 consecutive rows (a group) and a run of
+//   32 columns: lane l loads row l's run, with 16-byte loads where the
+//   rows start on 16 bytes. Then one __ballot_sync a column gives the
+//   column's 32 bits, one per row (the paper's ballot packing, which the
+//   TPU kernel emulated with a shift-and-sum): word [g, j] at t = 32,
+//   else 32 / t words cut t bits at a time. Lane j % 32 keeps column j's
+//   bits, so each output row is stored as one coalesced run of up to 32
+//   words. A warp walks kRowGroups groups, the next group's loads in
+//   flight while this group's ballots run. At 16 bytes a row its
+//   instructions weigh about as much as its bytes, so each ballot tests the
+//   loaded word itself (__vcmpne4 for 1-byte entries: one predicate, the
+//   vote and a select, about 4 instructions a column); gathering a run's
+//   bits first, as pack_dense does, cost twice the instructions. Rows
+//   off 16 bytes (D times the entry's bytes not a multiple of 16, a view
+//   with a storage offset) are read one entry at a time; at D = 1 the
+//   lanes' entries are neighbours, so those loads coalesce too.
 //   pack_dense: a stream (1.07 GB of uint8 in, 134 MB of words out for a
 //   [32768, 32768] matrix), laid out so that each lane loads 16 bytes at a
 //   time, many loads in flight, and each tile's words are stored
@@ -62,10 +77,6 @@ __device__ __forceinline__ uint32_t low_bits(int t) {
   return t == 32 ? 0xffffffffu : ((1u << t) - 1u);
 }
 
-__device__ __forceinline__ bool nonzero(uint8_t v) { return v != 0; }
-__device__ __forceinline__ bool nonzero(uint32_t v) { return v != 0; }
-__device__ __forceinline__ bool nonzero(float v) { return v != 0.0f; }
-
 // The bit transpose of the t x t tile whose row r lane r of each group
 // of t lanes holds in w (every lane of the warp takes part): log2(t)
 // butterfly steps exchange the off-diagonal blocks of halving size
@@ -88,22 +99,6 @@ __device__ __forceinline__ uint32_t transpose_lanes(uint32_t w, int t,
   return w;
 }
 
-template <typename E>
-__global__ void __launch_bounds__(kThreads)
-pack_rows_kernel(const E* __restrict__ x, uint32_t* __restrict__ out,
-                 int64_t n, int D, int t, int64_t n_words) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
-  if (i >= n_words) return;
-  const int64_t c = i / D;
-  const int j = static_cast<int>(i - c * D);
-  uint32_t w = 0;
-  for (int r = 0; r < t; ++r) {
-    const int64_t row = c * t + r;
-    if (row < n && nonzero(__ldg(x + row * D + j))) w |= 1u << r;
-  }
-  out[i] = w;
-}
-
 // Bytes of its row a pack_dense lane reads (at least 32 entries; picked
 // with tools/bitpack_variants.py on [32768, 32768] uint8 0/1, t = 32;
 // NVIDIA H100 80GB HBM3, 700.00 W; ms in order and reversed, bound
@@ -121,8 +116,16 @@ __device__ __forceinline__ uint32_t byte_bits(uint32_t w) {
 
 // Entry codes of pack_dense: 1-byte entries, int32, float32.
 template <int E> struct Entries;
+// Besides pack_dense's bits: pack_rows tests column i of a run held as
+// 32-bit words h (kPerWord entries a word, h = word(load)) with
+// h[i / kPerWord] & (kMask << (i % kPerWord) * kBytes * 8).
 template <> struct Entries<0> {
   static constexpr int kBytes = 1;
+  static constexpr int kPerWord = 4;
+  static constexpr uint32_t kMask = 0xffu;
+  static __device__ __forceinline__ uint32_t word(uint32_t v) {
+    return __vcmpne4(v, 0u);  // 0xff for a non-zero byte
+  }
   static __device__ __forceinline__ uint32_t bits(uint4 v) {  // 16 bits
     return byte_bits(v.x) | byte_bits(v.y) << 4 | byte_bits(v.z) << 8 |
            byte_bits(v.w) << 12;
@@ -133,6 +136,9 @@ template <> struct Entries<0> {
 };
 template <> struct Entries<1> {
   static constexpr int kBytes = 4;
+  static constexpr int kPerWord = 1;
+  static constexpr uint32_t kMask = 0xffffffffu;
+  static __device__ __forceinline__ uint32_t word(uint32_t v) { return v; }
   static __device__ __forceinline__ uint32_t bits(uint4 v) {  // 4 bits
     return (v.x != 0) | (v.y != 0) << 1 | (v.z != 0) << 2 | (v.w != 0) << 3;
   }
@@ -143,6 +149,9 @@ template <> struct Entries<1> {
 template <> struct Entries<2> {  // float32: -0.0 is zero, NaN is not
   static constexpr int kBytes = 4;
   static constexpr uint32_t kMag = 0x7fffffffu;
+  static constexpr int kPerWord = 1;
+  static constexpr uint32_t kMask = kMag;
+  static __device__ __forceinline__ uint32_t word(uint32_t v) { return v; }
   static __device__ __forceinline__ uint32_t bits(uint4 v) {
     return ((v.x & kMag) != 0) | ((v.y & kMag) != 0) << 1 |
            ((v.z & kMag) != 0) << 2 | ((v.w & kMag) != 0) << 3;
@@ -210,6 +219,125 @@ pack_dense_kernel(const void* __restrict__ x, uint32_t* __restrict__ out,
   }
 }
 
+// Groups of 32 rows a pack_rows warp walks (picked with
+// tools/bitpack_variants.py --kernel pack_rows on [2,097,152, 16] bool,
+// t = 32; NVIDIA H100 80GB HBM3, 700.00 W; device ms in order and
+// reversed, bound 0.0113): 1 group 0.0186, 0.0187; 2 0.0172, 0.0172; 4
+// 0.0165, 0.0166; 8 0.0165, 0.0164 (float32 entries: 4 0.0472, 0.0473,
+// 8 0.0477, 0.0476; D = 1 as bool: 4 0.0074, 0.0074, 8 0.0075, 0.0076).
+constexpr int kRowGroups = 4;
+// 1: rows that start on 16 bytes are read with 16-byte loads; 0: every
+// row one entry at a time (a variant for the tool).
+constexpr int kRowVectors = 1;
+
+// This lane's row's run as kVecs 16-byte loads, nv of them live, all in
+// flight together (a row past n loads nothing).
+template <int kVecs>
+__device__ __forceinline__ void load_run(const uint4* v, bool live, int nv,
+                                         uint4 (&w)[kVecs]) {
+#pragma unroll
+  for (int q = 0; q < kVecs; ++q)
+    w[q] = live && q < nv ? __ldg(v + q) : make_uint4(0, 0, 0, 0);
+}
+
+// The run's bits one entry at a time (x points at its first entry): bit i
+// is entry i != 0. A whole run has its 32 loads in flight together.
+template <typename En>
+__device__ __forceinline__ uint32_t run_bits_scalar(const void* x,
+                                                    bool live, int cols) {
+  uint32_t b = 0;
+  if (!live) return b;
+  if (cols == 32) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (En::one(x, i)) b |= 1u << i;
+  } else {
+    for (int i = 0; i < cols; ++i)
+      if (En::one(x, i)) b |= 1u << i;
+  }
+  return b;
+}
+
+// One group's words of its run's columns: column i is non-zero in a
+// lane's run iff h[i / P] & (M << (i % P) * (32 / P)), and is 0 at and
+// past cols. One ballot a column, lane i keeps column i's, and the lanes
+// store each of the group's 32 / T output rows (o: its first word of
+// this run) as one run of words; rows at or past R are not stored.
+template <int T, int P, uint32_t M>
+__device__ __forceinline__ void store_group(const uint32_t (&h)[32 / P],
+                                            int lane, int cols, uint32_t* o,
+                                            int64_t r0, int64_t R, int D) {
+  uint32_t mine = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    // uniform across the warp; the 16-byte loads' cols is a multiple of 4
+    if (i % (P == 32 ? 1 : 4) == 0 && i >= cols) break;
+    const uint32_t b =
+        __ballot_sync(kFull, h[i / P] & (M << (i % P) * (32 / P)));
+    if (lane == i) mine = b;
+  }
+  if (lane >= cols) return;
+#pragma unroll
+  for (int k = 0; k < 32 / T; ++k)
+    if (r0 + k < R) o[k * static_cast<int64_t>(D)] = (mine >> (k * T)) &
+                                                       low_bits(T);
+}
+
+// Warp w of the x axis packs rows 32 (w * kRowGroups + k) + lane, k <
+// kRowGroups, and columns c_base + 32 blockIdx.y .. + 31. aligned: every
+// row starts on 16 bytes.
+template <int E, int T>
+__global__ void __launch_bounds__(kThreads)
+pack_rows_kernel(const void* __restrict__ x, uint32_t* __restrict__ out,
+                 int64_t n, int D, int64_t R, int c_base, int aligned) {
+  using En = Entries<E>;
+  constexpr int kVecs = 32 * En::kBytes / 16;  // 16-byte loads a run
+  const int lane = threadIdx.x & 31;
+  const int c0 = c_base + blockIdx.y * 32;
+  const int cols = min(32, D - c0);
+  const int64_t g0 = (blockIdx.x * static_cast<int64_t>(kWarps) +
+                      (threadIdx.x >> 5)) * kRowGroups;
+  const int n_groups = static_cast<int>(
+      min(static_cast<int64_t>(kRowGroups), (n + 31) / 32 - g0));
+  if (n_groups <= 0) return;  // uniform across the warp
+  const int64_t row = g0 * 32 + lane;
+  const char* p = static_cast<const char*>(x) + (row * D + c0) * En::kBytes;
+  const int64_t step = 32 * static_cast<int64_t>(D) * En::kBytes;
+  uint32_t* o = out + g0 * (32 / T) * D + c0 + lane;
+  const int64_t o_step = (32 / T) * static_cast<int64_t>(D);
+  if (aligned) {
+    const int nv = cols * En::kBytes / 16;
+    uint4 w[2][kVecs];  // this group's loads and the next group's
+    load_run(reinterpret_cast<const uint4*>(p), row < n, nv, w[0]);
+#pragma unroll
+    for (int k = 0; k < kRowGroups; ++k) {
+      if (k >= n_groups) break;  // uniform
+      if (k + 1 < kRowGroups)
+        load_run(reinterpret_cast<const uint4*>(p + (k + 1) * step),
+                 row + (k + 1) * 32 < n, nv, w[(k + 1) & 1]);
+      uint32_t h[32 / En::kPerWord];
+#pragma unroll
+      for (int q = 0; q < kVecs; ++q) {
+        const uint4 v = w[k & 1][q];
+        const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) h[q * 4 + c] = En::word(u[c]);
+      }
+      store_group<T, En::kPerWord, En::kMask>(
+          h, lane, cols, o + k * o_step, (g0 + k) * (32 / T), R, D);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRowGroups; ++k) {
+      if (k >= n_groups) break;  // uniform
+      const uint32_t h[1] = {run_bits_scalar<En>(p + k * step,
+                                                 row + k * 32 < n, cols)};
+      store_group<T, 32, 1u>(h, lane, cols, o + k * o_step,
+                             (g0 + k) * (32 / T), R, D);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 bit_transpose_kernel(const uint32_t* __restrict__ in,
                      uint32_t* __restrict__ out, int64_t n_words, int t) {
@@ -221,6 +349,29 @@ bit_transpose_kernel(const uint32_t* __restrict__ in,
 }
 
 bool valid_t(int t) { return t == 4 || t == 8 || t == 16 || t == 32; }
+
+using RowsKernel = void (*)(const void*, uint32_t*, int64_t, int, int64_t,
+                            int, int);
+
+template <int E>
+RowsKernel rows_for_t(int t) {
+  switch (t) {
+    case 4: return pack_rows_kernel<E, 4>;
+    case 8: return pack_rows_kernel<E, 8>;
+    case 16: return pack_rows_kernel<E, 16>;
+    case 32: return pack_rows_kernel<E, 32>;
+    default: return nullptr;
+  }
+}
+
+RowsKernel rows_for(int elem, int t) {
+  switch (elem) {
+    case 0: return rows_for_t<0>(t);
+    case 1: return rows_for_t<1>(t);
+    case 2: return rows_for_t<2>(t);
+    default: return nullptr;
+  }
+}
 
 using PackKernel = void (*)(const void*, uint32_t*, int64_t, int64_t, int64_t,
                             int64_t, int64_t, int, int);
@@ -257,23 +408,27 @@ extern "C" {
 // out: uint32[ceil(n / t), D].
 int pack_rows(const void* x, int elem, void* out, int64_t n, int D, int t,
               void* stream) {
-  if (!valid_t(t) || D <= 0 || elem < 0 || elem > 2)
+  const RowsKernel k = rows_for(elem, t);
+  const int64_t n_warps = ((n + 31) / 32 + kRowGroups - 1) / kRowGroups;
+  if (k == nullptr || D <= 0 || (n_warps + kWarps - 1) / kWarps > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n_words = (n + t - 1) / t * D;
-  if (n_words <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint32_t* o = static_cast<uint32_t*>(out);
-  const unsigned blocks = blocks_for(n_words, kThreads);
-  if (elem == 0)
-    pack_rows_kernel<<<blocks, kThreads, 0, s>>>(
-        static_cast<const uint8_t*>(x), o, n, D, t, n_words);
-  else if (elem == 1)
-    pack_rows_kernel<<<blocks, kThreads, 0, s>>>(
-        static_cast<const uint32_t*>(x), o, n, D, t, n_words);
-  else
-    pack_rows_kernel<<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(x), o, n, D, t, n_words);
-  return static_cast<int>(cudaGetLastError());
+  if (n <= 0) return 0;
+  const int bytes = elem == 0 ? 1 : 4;
+  const int aligned = kRowVectors && reinterpret_cast<uintptr_t>(x) % 16 == 0
+                      && (static_cast<int64_t>(D) * bytes) % 16 == 0;
+  // runs of 32 columns on the grid's y axis, 65,535 a launch
+  const int64_t n_runs = (static_cast<int64_t>(D) + 31) / 32;
+  for (int64_t r0 = 0; r0 < n_runs; r0 += 65535) {
+    const dim3 grid(blocks_for(n_warps, kWarps),
+                    static_cast<unsigned>(std::min<int64_t>(n_runs - r0,
+                                                            65535)));
+    k<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        x, static_cast<uint32_t*>(out), n, D, (n + t - 1) / t,
+        static_cast<int>(r0 * 32), aligned);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 // x: [n, m] entries of type elem; out: uint32[ceil(n / t), ceil(m / t), t].
