@@ -10,10 +10,11 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels`` (five
 ``.cu`` sources, one ``nvcc`` each, in parallel) and drives BFS, SSSP,
 PageRank/PPR, CC, the generic mxv rows, triangle counting, boolean
 SpGEMM, k-hop reachability, the multi-source engine (msbfs, mskhop,
-ms_sssp, batched PPR, the query batcher), the bit-packing entry points
-and BitGNN inference (``gnn_infer`` at gcn-cora's widths) through the
-port's entry points. Each phase prints one JSON line; a failed phase
-exits non-zero.
+ms_sssp, batched PPR, the query batcher), the bit-packing entry points,
+BitGNN inference (``gnn_infer`` at gcn-cora's widths) and GCN training
+(``train_steps.gnn_train_step`` and the trainer at the same widths)
+through the port's entry points. Each phase prints one JSON line; a
+failed phase exits non-zero.
 
   1. kernels: each kernel against its plain PyTorch version
      (``kernels/bmv/ref.py``) on the card, at tile dims 4/8/16/32 on small
@@ -139,7 +140,25 @@ exits non-zero.
      packing of h > 0), and the wrapper's floor (a [32, 1] bool).
      In phases 15-16 the kernels' launch counts are set to 0 just before
      the phase's ``b2sr_cuda`` runs and read just after.
- 17. timing: per kernel of phases 2-6 the median time of one launch (CUDA
+ 17. train: GCN training at gcn-cora's widths on the same graph, from
+     the gnn phase's features (its other tensors freed first), labels of
+     the 7 classes, a 30% train mask and random weights made on the card
+     from the seed; AdamW, lr 5e-3, no warmup. 4 steps of
+     ``gnn_train_step`` on ``b2sr_cuda`` and ``csr`` from the same
+     weights: losses finite and within rtol 1e-4 of each other at every
+     step, step 1's gradients within 1e-4 of each one's max |value|; on
+     ``b2sr_cuda`` a run with a checkpoint every step that fails at step
+     2 and is restarted from its checkpoint: its parameters equal the
+     uninterrupted run's bit for bit. The launch count of ``spmm_dense``
+     is set to 0 before the ``b2sr_cuda`` steps and must read 3 a step
+     after (two forward, one backward over Aᵀ). One backward launch's
+     Aᵀ·dY, caught by hooks on its autograd node, within 1e-5·(Aᵀ·|dY|)
+     of a float64 SciPy product and of the plain version, the same bits
+     on a second launch, and timed beside its plain version, the ``csr``
+     row, one cuSPARSE SpMM of the float CSR of Aᵀ by [n, 16] and its
+     bound. Prints the step walls (median of steps 2-4) and the peak
+     device memory.
+ 18. timing: per kernel of phases 2-6 the median time of one launch (CUDA
      events) on the main path's inputs (each iteration of one run),
      beside its plain version, the ``csr`` row, one cuSPARSE SpMV call
      (``torch.mv`` on the float CSR) where that computes the same
@@ -153,10 +172,10 @@ exits non-zero.
      version). Pull runs with the
      items and the lane occupancy the registry keeps. Phases 7-8 time
      their own kernels the same way.
- 18. profile: one run per algorithm and BFS direction, triangle counting,
-     k-hop, msbfs (auto), batched PPR and ``gnn_infer`` (bit and float)
-     under ``torch.profiler``: device time by kernel and the card's idle
-     share.
+ 19. profile: one run per algorithm and BFS direction, triangle counting,
+     k-hop, msbfs (auto), batched PPR, ``gnn_infer`` (bit and float) and
+     one GCN train step on ``b2sr_cuda`` under ``torch.profiler``: device
+     time by kernel and the card's idle share.
 
 The kernels phase also holds ``bmm_tc`` and ``spgemm_bbb`` against their
 plain versions on the small graphs at every tile dim (SpGEMM with no
@@ -200,6 +219,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import statistics
@@ -278,6 +298,12 @@ PACK_ROWS = 70                 # pack_dense checks: rows, widths, types
 PACK_WIDTHS = (1, 15, 17, 33, 100, 1024, 1040)
 PACK_DTYPES = ("bool", "uint8", "int8", "int32", "float32")  # entry types
 TRANSPOSE_CHUNK = 1 << 19      # tiles per plain bit_transpose call
+TRAIN_STEPS = 4                # train: steps per run
+TRAIN_FAIL_AT = 2              # the resumed run's injected failure
+TRAIN_LR = 5e-3
+TRAIN_MASK = 0.3               # share of the nodes in the loss
+LOSS_RTOL = 1e-4               # train: b2sr_cuda's losses against csr's
+GRAD_TOL = 1e-4                # step 1's gradients, over each one's max |g|
 
 
 def emit(obj) -> None:
@@ -2472,7 +2498,239 @@ def phase_gnn(g, adj, deg, srcs):
     runs = {f"gnn_infer/{k}": (lambda k=k: gnn_infer(g, nodes,
                                                      f"gcn-cora/{k}"))
             for k in models}
-    return [bbf, pack], launches, runs
+    return [bbf, pack], launches, runs, x
+
+
+def backward_node(root, name: str):
+    """The first node of the autograd graph under ``root`` whose name holds
+    ``name`` (breadth first)."""
+    todo, seen = [root], set()
+    while todo:
+        node = todo.pop(0)
+        if node is None or node in seen:
+            continue
+        if name in node.name():
+            return node
+        seen.add(node)
+        todo.extend(f for f, _ in node.next_functions)
+    raise LookupError(f"no {name} node in the autograd graph")
+
+
+def phase_train(g, adj, deg, x):
+    """GCN training at gcn-cora's full width on the full graph.
+
+    The batch: ``x`` (the gnn phase's bag-of-words features, made on the
+    card from SEED; its other tensors are freed by then), labels of the 7
+    classes and a TRAIN_MASK share of the nodes in the loss, drawn on the
+    card from a seed, the degrees plus one (the graph is symmetric, so
+    the receivers' counts are the rows'), Glorot-scaled random weights.
+    AdamW at TRAIN_LR, no warmup. Runs, through ``train_steps``:
+      - TRAIN_STEPS steps on ``b2sr_cuda`` and on ``csr`` from the same
+        weights: every loss finite, the backends' losses within LOSS_RTOL
+        at each step; ``spmm_dense``'s launch count over the b2sr_cuda
+        steps must be 3 a step (layer 0's and layer 1's forward, layer
+        1's backward over Aᵀ: layer 0's input needs no gradient);
+      - step 1's gradients (``value_and_grad``) on both, within GRAD_TOL
+        of each gradient's max |value|; on b2sr_cuda the backward
+        launch's dY and Aᵀ·dY are caught by hooks on the autograd node,
+        and Aᵀ·dY must lie within SUM_TOL·(Aᵀ·|dY|) of a float64 SciPy
+        product and of the plain version, and give the same bits on a
+        second launch;
+      - on ``b2sr_cuda`` a run with a checkpoint every step and a failure
+        at step TRAIN_FAIL_AT, restarted from its checkpoint to step
+        TRAIN_STEPS: its parameters equal the uninterrupted run's bit for
+        bit.
+    Prints the steps' walls (median of steps 2-4 per backend), the peak
+    device memory, and the backward launch's time beside its plain
+    version, the csr row, one cuSPARSE SpMM of the float CSR of Aᵀ by
+    [n, 16] and its bound. Returns the table row of the backward launch,
+    the b2sr_cuda launches of spmm_dense, and a train step for the
+    profile phase.
+    """
+    import tempfile
+    import torch
+    from repro_torch.configs import gcn_cora
+    from repro_torch.core import csr as csr_mod
+    from repro_torch.kernels.items import items_for
+    from repro_torch.kernels.spmm import ref, spmm
+    from repro_torch.models.gnn.common import GraphBatch
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_steps
+    from repro_torch.training.trainer import (SimulatedFailure,
+                                              TrainerConfig, TrainState, run)
+
+    cfg = gcn_cora.CONFIG
+    n = g.n_rows
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    labels = torch.randint(0, cfg.n_classes, (n,), generator=gen,
+                           device=DEVICE)
+    train_mask = torch.rand(n, generator=gen, device=DEVICE) < TRAIN_MASK
+    dims = ([cfg.d_in] + [cfg.d_hidden] * (cfg.n_layers - 1)
+            + [cfg.n_classes])
+    params = {}
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        params[f"layers.{i}.weight"] = (torch.randn(
+            (b, a), generator=gen, device=DEVICE) * (2.0 / (a + b)) ** 0.5)
+        params[f"layers.{i}.bias"] = 0.1 * torch.randn(
+            b, generator=gen, device=DEVICE)
+    none = torch.zeros(0, dtype=torch.int64, device=DEVICE)
+    # the GCN reads the edge list only without a graph or degrees
+    batches = {be: GraphBatch(
+        node_feat=x, senders=none, receivers=none,
+        edge_mask=none.bool(), graph=g.with_backend(be),
+        degrees=torch.as_tensor(deg + 1.0, dtype=torch.float32,
+                                device=DEVICE),
+        labels=labels, train_mask=train_mask)
+        for be in ("b2sr_cuda", "csr")}
+    ocfg = opt_mod.OptimizerConfig(name="adamw", lr=TRAIN_LR,
+                                   warmup_steps=0)
+    step = train_steps.gnn_train_step(cfg, ocfg)
+    problems = []
+
+    # step 1's gradients; on b2sr_cuda catch the backward launch's dY
+    base = train_steps.gnn_loss_fn(cfg)
+    caught = {}
+
+    def hooked(p, batch):
+        loss, aux = base(p, batch)
+        node = backward_node(loss.grad_fn, "_DenseProduct")
+        node.register_prehook(lambda go: caught.update(dy=go[0].detach()))
+        node.register_hook(lambda gi, go: caught.update(dx=gi[-1].detach()))
+        return loss, aux
+
+    grads = {}
+    reset_launches(["spmm_dense"])
+    (_, _), grads["b2sr_cuda"] = train_steps.value_and_grad(
+        hooked, params, batches["b2sr_cuda"])
+    grad_launches = read_launches("train", ["spmm_dense"])["spmm_dense"]
+    (_, _), grads["csr"] = train_steps.value_and_grad(
+        base, params, batches["csr"])
+    grad_err = {}
+    for k, want in grads["csr"].items():
+        scale = float(want.abs().max())
+        grad_err[k] = float((grads["b2sr_cuda"][k] - want).abs().max()
+                            ) / max(scale, 1e-30)
+        if grad_err[k] > GRAD_TOL:
+            problems.append(f"step 1 gradient {k}: b2sr_cuda != csr")
+    del grads
+
+    # the backward launch against float64 SciPy and the plain version
+    dy, dx = caught["dy"].contiguous(), caught["dx"]
+    gt = g.transposed()
+    mt = gt.b2sr
+    dy64 = dy.double().cpu().numpy()
+    err64 = np.abs(dx.double().cpu().numpy() - adj.T @ dy64)
+    bound64 = SUM_TOL * (adj.T @ np.abs(dy64))
+    scipy_ratio = float(np.max(err64 / np.maximum(bound64, 1e-30)))
+    if not bool((err64 <= bound64).all()):
+        problems.append("backward Aᵀ·dY != float64 SciPy")
+    del dy64, err64, bound64
+    want = ref.spmm_dense(mt, dy).double()
+    bound = SUM_TOL * ref.spmm_dense(mt, dy.abs()).double()
+    diff = (dx.double() - want).abs()
+    plain_ratio = float((diff / bound.clamp_min(1e-30)).max())
+    plain_err = float(diff.max())
+    if not bool((diff <= bound).all()):
+        problems.append("backward Aᵀ·dY != plain version")
+    items_t = items_for(gt, spmm.DENSE_ITEM_WORK, by_bits=True)
+    again = spmm.spmm_dense(mt, dy, items=items_t)
+    if not torch.equal(again.view(torch.int32), dx.view(torch.int32)):
+        problems.append("backward Aᵀ·dY differs on a second launch")
+    del want, bound, diff, again
+    spm_t = csr_mod.to_sparse(gt.csr)
+    gct = gt.with_backend("csr")
+    backward = {
+        "name": "spmm_dense", "d": int(dy.shape[1]),
+        "ms": event_ms(lambda: spmm.spmm_dense(mt, dy, items=items_t)),
+        "plain_ms": event_ms(lambda: ref.spmm_dense(mt, dy), reps=1),
+        "csr_row_ms": event_ms(lambda: gct.mxm(dy), reps=3),
+        "library_ms": event_ms(lambda: torch.sparse.mm(spm_t, dy), reps=3),
+        "err_over_bound_scipy": scipy_ratio,
+        "err_over_bound_plain": plain_ratio,
+        "max_abs_err": plain_err,
+        **bound_row(*dense_bytes_ops(mt, int(dy.shape[1]), g.nnz)),
+        "inputs": f"the GCN's layer-1 backward, Aᵀ·dY at D = "
+                  f"{cfg.d_hidden} over the stored transpose; library: "
+                  f"cuSPARSE SpMM of the float CSR of Aᵀ"}
+    del spm_t, dy, dx, caught
+    torch.cuda.empty_cache()
+
+    # TRAIN_STEPS steps per backend from the same weights
+    losses, walls, final = {}, {}, {}
+    launches = None
+    for be in ("b2sr_cuda", "csr"):
+        p, o = params, opt_mod.init(ocfg, params)
+        losses[be], walls[be] = [], []
+        if be == "b2sr_cuda":
+            reset_launches(["spmm_dense"])
+        for _ in range(TRAIN_STEPS):
+            (p, o, m), wall = sync_time(
+                lambda: step(p, o, batches[be]))
+            losses[be].append(float(m["loss"]))
+            walls[be].append(wall)
+        if be == "b2sr_cuda":
+            launches = read_launches("train", ["spmm_dense"])["spmm_dense"]
+            if launches != 3 * TRAIN_STEPS:
+                problems.append(f"spmm_dense launched {launches} times in "
+                                f"{TRAIN_STEPS} steps, not 3 a step")
+        final[be] = p
+    for be, ls in losses.items():
+        if not all(np.isfinite(ls)):
+            problems.append(f"{be} loss not finite: {ls}")
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses["b2sr_cuda"],
+                                                    losses["csr"])]
+    if max(loss_rel) > LOSS_RTOL:
+        problems.append(f"losses b2sr_cuda != csr: {loss_rel}")
+
+    # fail at TRAIN_FAIL_AT, restart from the checkpoint
+    reset_launches(["spmm_dense"])
+    with tempfile.TemporaryDirectory() as d:
+        tcfg = TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=1,
+                             ckpt_dir=d, log_every=0,
+                             fail_at_step=TRAIN_FAIL_AT)
+        start = TrainState(params, opt_mod.init(ocfg, params))
+        data = itertools.repeat((batches["b2sr_cuda"],))
+        try:
+            run(tcfg, step, start, data)
+            problems.append("the injected failure did not fire")
+        except SimulatedFailure:
+            pass
+        resumed = run(dataclasses.replace(tcfg, fail_at_step=None), step,
+                      start, data)
+    resume_launches = read_launches("train", ["spmm_dense"])["spmm_dense"]
+    same = all(torch.equal(resumed["state"].params[k], v)
+               for k, v in final["b2sr_cuda"].items())
+    if not same:
+        problems.append("resumed parameters != uninterrupted run's")
+    if resumed["losses"] != losses["b2sr_cuda"][TRAIN_FAIL_AT:]:
+        problems.append("resumed losses != uninterrupted run's")
+    peak = torch.cuda.max_memory_allocated()
+
+    emit({"phase": "train", "ok": not problems, "problems": problems[:10],
+          "config": "gcn-cora", "n": n, "d_in": cfg.d_in,
+          "d_hidden": cfg.d_hidden, "n_classes": cfg.n_classes,
+          "steps": TRAIN_STEPS, "train_nodes": int(train_mask.sum()),
+          "losses": losses, "loss_rel_diff": loss_rel,
+          "step_wall_s": walls,
+          "step_wall_median_2_4_s": {be: statistics.median(w[1:])
+                                     for be, w in walls.items()},
+          "grad_err_over_max": grad_err,
+          "resume": {"fail_at": TRAIN_FAIL_AT, "same_params": same,
+                     "losses": resumed["losses"]},
+          "spmm_dense_launches": {"steps": launches,
+                                  "gradient_check": grad_launches,
+                                  "fail_and_resume": resume_launches},
+          "peak_device_bytes": peak, "device_bytes_before": before,
+          "backward": backward})
+    if problems:
+        fail("train", "; ".join(problems[:5]))
+    p, o = final["b2sr_cuda"], opt_mod.init(ocfg, params)
+    total = launches + grad_launches + resume_launches
+    return backward, total, {"train_step/b2sr_cuda": (
+        lambda: step(p, o, batches["b2sr_cuda"]))}
 
 
 def phase_profile(g, source, road, srcs, extra_runs):
@@ -2603,10 +2861,15 @@ def main() -> int:
     spmm_rows = spmm_timing(g, ms_auto.levels, ms_auto.n_iterations,
                             srcs[:PPR_SEEDS])
     pack_rows_ = phase_bitpack(g)
-    gnn_rows, ls, gnn_runs = phase_gnn(g, adj, deg, srcs)
+    gnn_rows, ls, gnn_runs, features = phase_gnn(g, adj, deg, srcs)
     dense_launches += ls["spmm_dense"]
+    train_row, train_launches, train_runs = phase_train(g, adj, deg,
+                                                        features)
+    dense_launches += train_launches
     for row, n_launches in zip(spmm_rows, (bbb_launches, dense_launches)):
         row["launches"] = n_launches
+    spmm_rows[1].update(train_backward=train_row,
+                        max_abs_err=train_row["max_abs_err"])
     for row in gnn_rows:
         row["launches"] = ls[row["name"]]
 
@@ -2623,7 +2886,7 @@ def main() -> int:
     spgemm_row["max_abs_err"] = max(spgemm_row["max_abs_err"], hop_err)
     order = list(KERNELS)
     table.sort(key=lambda r: order.index(r["name"]))
-    phase_profile(g, sources[0], road, srcs, gnn_runs)
+    phase_profile(g, sources[0], road, srcs, {**gnn_runs, **train_runs})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,5 +1,6 @@
 """The GNN configuration: the fields of the reference's
-``repro.configs.base.GNNConfig`` that the GCN forward reads."""
+``repro.configs.base.GNNConfig`` that the GCN forward and its training
+step read."""
 
 from __future__ import annotations
 
@@ -19,3 +20,6 @@ class GNNConfig:
     # the float segment sum over the edge list
     use_b2sr: bool = False
     tile_dim: int = 32
+    # the model family ``training.train_steps`` builds a step for; the
+    # port has the GCN only (the others: ROADMAP Queue 1 item 10)
+    family: str = "gcn"

@@ -24,7 +24,10 @@ The weights of a model cross over too: ``gcn_state_from_reference``
 turns the reference GCN's ``params`` into the ``state_dict`` of the
 port's ``models.gnn.gcn.GCN``, and ``gnn_model_from_reference`` a served
 model's ``((w, b), ...)`` and features into the arguments of the port's
-``engine.queries.register_gnn_model``.
+``engine.queries.register_gnn_model``; ``opt_state_from_reference``
+turns the reference optimizer's state for those weights into the port's
+``training.optimizer.OptState``, so both packages resume from one
+mid-run state.
 """
 
 from __future__ import annotations
@@ -165,13 +168,46 @@ def gcn_state_from_reference(params: Mapping[str, Mapping[str, np.ndarray]],
     [d_out]}}`` (numpy) as the ``state_dict`` of ``GCN``:
     ``layers.i.weight`` is ``w`` transposed (``nn.Linear`` keeps
     ``[d_out, d_in]``), ``layers.i.bias`` is ``b``."""
+    return _gcn_layers(params, resolve_device(device), _f32)
+
+
+def _gcn_layers(tree: Mapping[str, Mapping[str, np.ndarray]], dev,
+                convert) -> Dict[str, torch.Tensor]:
+    """``{"layer_i": {"w", "b"}}`` as ``layers.i.weight`` (``w``
+    transposed) and ``layers.i.bias``, each through ``convert``."""
+    out = {}
+    for i in range(len(tree)):
+        layer = tree[f"layer_{i}"]
+        out[f"layers.{i}.weight"] = convert(layer["w"], dev).T.contiguous()
+        out[f"layers.{i}.bias"] = convert(layer["b"], dev)
+    return out
+
+
+def _moment(a, dev: torch.device) -> torch.Tensor:
+    """A float32 or bfloat16 numpy array (``ml_dtypes``' bfloat16, as JAX
+    gives it) as a tensor of the same dtype: bfloat16 goes through
+    float32, which holds it exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32), device=dev).to(
+            torch.bfloat16)
+    return torch.tensor(a, device=dev)
+
+
+def opt_state_from_reference(opt_state, device: DeviceLike = None):
+    """The reference optimizer's ``OptState`` (``step``, ``m``, ``v`` as
+    numpy, the moments in the GCN's ``{"layer_i": {"w", "b"}}`` tree; ``v``
+    None for sgd) as the port's ``OptState`` on ``device``: the moments
+    keyed and laid out as :func:`gcn_state_from_reference` lays out the
+    weights, in their own dtype; ``step`` an int32 scalar."""
+    from repro_torch.training.optimizer import OptState
     dev = resolve_device(device)
-    state = {}
-    for i in range(len(params)):
-        layer = params[f"layer_{i}"]
-        state[f"layers.{i}.weight"] = _f32(layer["w"], dev).T.contiguous()
-        state[f"layers.{i}.bias"] = _f32(layer["b"], dev)
-    return state
+    step, m, v = opt_state
+    return OptState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=dev),
+        m=_gcn_layers(m, dev, _moment),
+        v=None if v is None else _gcn_layers(v, dev, _moment))
 
 
 def gnn_model_from_reference(params, features,

@@ -63,6 +63,11 @@ _BACKEND_MODULES: Dict[str, Tuple[str, ...]] = {
 BACKENDS = tuple(_BACKEND_MODULES)
 _LOADED: set = set()
 
+#: Dispatch counters, as the reference's: callers check that an op
+#: resolved through here, and which row it resolved last.
+stats = {"resolves": 0}
+last_key: Optional[Key] = None
+
 
 @dataclasses.dataclass
 class OpCall:
@@ -121,10 +126,13 @@ def _ensure_backend(backend: str) -> None:
 def resolve(op: str, rhs: str, out: str, backend: str, bucketed: bool,
             masked: bool, sharded: bool = False) -> Callable:
     """Look up the implementation for one fully-specified Table row."""
+    global last_key
     key: Key = (op, rhs, out, backend, bucketed, masked, sharded)
     _ensure_backend(backend)
     fn = _REGISTRY.get(key)
     if fn is not None:
+        stats["resolves"] += 1
+        last_key = key
         return fn
     raise NotImplementedError(
         f"no kernel registered for op={op} rhs={rhs} out={out} "

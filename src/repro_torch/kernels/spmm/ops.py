@@ -2,8 +2,9 @@
 
   mxm dense full        ``spmm_dense`` (masked: the mask after the
                         kernel, as the reference's rows do); the
-                        gradient in X is ``spmm_dense`` over the
-                        stored transpose
+                        gradient in X is ``spmm_dense`` over Aᵀ: the
+                        stored transpose, or one built from the tiles
+                        on the first backward and kept with A
   mxm bitmat full       ``spmm_bbf`` (masked: the mask after the kernel)
   mxm frontier bin      ``spmm_bbb``, the mask ANDed in the kernel
   mxm_pull frontier bin the masked push kernel, as in the reference: a
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import b2sr as b2sr_mod
 from repro_torch.core.dispatch import BOTH, apply_output_mask, register
 from repro_torch.kernels.items import items_for
 from repro_torch.kernels.spmm.spmm import (BBB_ITEM_WORK, BBF_ITEM_WORK,
@@ -34,11 +36,26 @@ def _dense_items(g):
     return items_for(g, DENSE_ITEM_WORK, by_bits=True)
 
 
+def _transposed(g):
+    """Aᵀ for the gradient: the stored transpose, or, for a graph built
+    without one, ``b2sr.transpose`` of A's tiles, built once and kept in
+    A's orientation cache (its work items are then kept with it)."""
+    if g.bwd is not None:
+        return g.transposed()
+    cache = g.fwd.cache
+    if "transpose" not in cache:
+        from repro_torch.core.graphblas import GraphMatrix
+        cache["transpose"] = GraphMatrix.from_b2sr(
+            b2sr_mod.transpose(g.b2sr), with_transpose=False,
+            backend=g.backend)
+    return cache["transpose"]
+
+
 class _DenseProduct(torch.autograd.Function):
     """``Y = A · X`` through ``spmm_dense``, differentiable in ``X``: the
-    gradient ``Aᵀ · dY`` runs the same kernel over the stored transpose
-    (``g.transposed()``, with the work items it keeps). On a CPU graph
-    both directions run the plain version."""
+    gradient ``Aᵀ · dY`` runs the same kernel over Aᵀ (:func:`_transposed`,
+    with the work items it keeps). On a CPU graph both directions run the
+    plain version."""
 
     @staticmethod
     def forward(ctx, g, x):
@@ -47,7 +64,7 @@ class _DenseProduct(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        gt = ctx.g.transposed()
+        gt = _transposed(ctx.g)
         return None, spmm_dense(gt.b2sr, dy.contiguous(),
                                 items=_dense_items(gt))
 

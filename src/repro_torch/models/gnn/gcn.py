@@ -7,17 +7,22 @@ the inner product is over the binary adjacency and goes through
 batch without a graph) the float segment sum over the edge list is the
 baseline. The order of operations is the reference's (``forward`` and
 ``_aggregate`` of ``repro.models.gnn.gcn``): aggregate, then ``@ W + b``,
-so the float results match it.
+so the float results match it. :func:`loss_fn` is the reference's
+node-level loss; the graph-level branch (molecule batches, ``n_graphs >
+1``) waits for ROADMAP Queue 1 item 10.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.gnn import GNNConfig
 from repro_torch.gnn_bit import layers as bit_layers
-from repro_torch.models.gnn.common import GraphBatch, segment_agg
+from repro_torch.models.gnn.common import (GraphBatch, node_ce_loss,
+                                           segment_agg)
 
 
 class GCN(nn.Module):
@@ -62,3 +67,17 @@ class GCN(nn.Module):
             if i < len(self.layers) - 1:
                 h = torch.relu(h)
         return h
+
+
+def loss_fn(model: Callable[[GraphBatch], torch.Tensor], batch: GraphBatch
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The masked node cross-entropy of ``model(batch)`` over
+    ``batch.train_mask``: ``(loss, {"ce": loss})``. ``model`` is a
+    :class:`GCN` or any callable from a batch to logits (the train step
+    passes one over its parameter dict)."""
+    if batch.n_graphs > 1:
+        raise NotImplementedError(
+            "the graph-level GCN loss (n_graphs > 1, molecule batches) is "
+            "not ported yet (ROADMAP Queue 1 item 10)")
+    loss = node_ce_loss(model(batch), batch.labels, batch.train_mask)
+    return loss, {"ce": loss}
