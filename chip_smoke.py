@@ -11,9 +11,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels`` (five
 PageRank/PPR, CC, the generic mxv rows, triangle counting, boolean
 SpGEMM, k-hop reachability, the multi-source engine (msbfs, mskhop,
 ms_sssp, batched PPR, the query batcher), the bit-packing entry points,
-BitGNN inference (``gnn_infer`` at gcn-cora's widths) and GCN training
-(``train_steps.gnn_train_step`` and the trainer at the same widths)
-through the port's entry points. Each phase prints one JSON line; a
+BitGNN inference (``gnn_infer`` at gcn-cora's widths), the serving front
+end (``GraphQueryServer`` with its telemetry, warm restart and injected
+faults) and GCN training (``train_steps.gnn_train_step`` and the trainer
+at the same widths) through the port's entry points. Each phase prints one JSON line; a
 failed phase exits non-zero.
 
   1. kernels: each kernel against its plain PyTorch version
@@ -140,7 +141,33 @@ failed phase exits non-zero.
      packing of h > 0), and the wrapper's floor (a [32, 1] bool).
      In phases 15-16 the kernels' launch counts are set to 0 just before
      the phase's ``b2sr_cuda`` runs and read just after.
- 17. train: GCN training at gcn-cora's widths on the same graph, from
+ 17. serve: the serving front end (``engine.GraphQueryServer``) on the
+     same graph, with the gnn phase's models: a stream of 256 queries (96
+     bfs, 48 khop at k = 2, 48 sssp, 32 ppr of 10 iterations at eps 0,
+     32 gnn_infer on the bit model; sources from the seed, the bfs
+     phase's among them), 8 at a time 10 ms apart with ``poll()`` after
+     each batch, ``max_batch`` 64 and the default 100 ms budget. Every
+     handle must resolve on ``b2sr_cuda`` (no degraded launch, no failed
+     query, every breaker closed) and equal its launch replayed through
+     ``launch_group`` bit for bit; the bfs phase's sources equal SciPy's
+     levels; ``spmm_bbb``, ``spmm_dense``, ``spmm_bbf`` and ``pack_rows``
+     must launch (counts set to 0 before the stream, read after). Prints
+     p50/p99 latency by kind from the traces, the share of trace time by
+     stage, flushes by reason, plan-cache hits and misses, queries per
+     second, deadlines missed by kind and the stream's wall with
+     ``obs.disabled()`` and on (twice each, in turns). Then the metrics
+     exported and read back (``write_metrics``, ``parse_prometheus``,
+     ``dump_traces``), a warm restart (``save_warmup``, a fresh server's
+     ``warmup``: the first arrival batch again adds no plan-cache miss;
+     the first query cold and warm, 5 times each in turns), and faults
+     on R-MAT scale 16: a scripted ``FaultInjector`` on
+     bfs/``b2sr_cuda`` over 2-hop bfs queries (answers on ``b2sr``, the
+     breaker opens, skips, half-opens and closes), every launch of bfs,
+     khop, sssp and ppr faulted (answers on ``b2sr`` equal the healthy
+     ``b2sr_cuda`` answers, ppr within rtol 1e-4), and a direct ``bfs``
+     raising ``InjectedFault`` while the injector is installed; every
+     degraded launch must follow an injected fault.
+ 18. train: GCN training at gcn-cora's widths on the same graph, from
      the gnn phase's features (its other tensors freed first), labels of
      the 7 classes, a 30% train mask and random weights made on the card
      from the seed; AdamW, lr 5e-3, no warmup. 4 steps of
@@ -158,7 +185,7 @@ failed phase exits non-zero.
      row, one cuSPARSE SpMM of the float CSR of Aᵀ by [n, 16] and its
      bound. Prints the step walls (median of steps 2-4) and the peak
      device memory.
- 18. timing: per kernel of phases 2-6 the median time of one launch (CUDA
+ 19. timing: per kernel of phases 2-6 the median time of one launch (CUDA
      events) on the main path's inputs (each iteration of one run),
      beside its plain version, the ``csr`` row, one cuSPARSE SpMV call
      (``torch.mv`` on the float CSR) where that computes the same
@@ -172,7 +199,7 @@ failed phase exits non-zero.
      version). Pull runs with the
      items and the lane occupancy the registry keeps. Phases 7-8 time
      their own kernels the same way.
- 19. profile: one run per algorithm and BFS direction, triangle counting,
+ 20. profile: one run per algorithm and BFS direction, triangle counting,
      k-hop, msbfs (auto), batched PPR, ``gnn_infer`` (bit and float) and
      one GCN train step on ``b2sr_cuda`` under ``torch.profiler``: device
      time by kernel and the card's idle share.
@@ -304,6 +331,15 @@ TRAIN_LR = 5e-3
 TRAIN_MASK = 0.3               # share of the nodes in the loss
 LOSS_RTOL = 1e-4               # train: b2sr_cuda's losses against csr's
 GRAD_TOL = 1e-4                # step 1's gradients, over each one's max |g|
+#: serve: queries of the stream by kind (bfs, khop, sssp, ppr, gnn_infer)
+SERVE_QUERIES = {"bfs": 96, "khop": 48, "sssp": 48, "ppr": 32, "gnn_infer": 32}
+SERVE_ARRIVAL = 8              # queries admitted between polls
+SERVE_GAP_S = 0.010            # seconds between arrival batches
+SERVE_MAX_BATCH = 64
+SERVE_KHOP_K = 2
+SERVE_PPR_ITERS = 10
+SERVE_RESTARTS = 5             # cold / warm first-batch samples, in turns
+SERVE_FAULT_HOPS = 2           # serve (d): hops of the scripted bfs queries
 
 
 def emit(obj) -> None:
@@ -2501,6 +2537,423 @@ def phase_gnn(g, adj, deg, srcs):
     return [bbf, pack], launches, runs, x
 
 
+def serve_stream(g, rng_seed, sources):
+    """The serve phase's query stream: (kind, source, params) in arrival
+    order, the bfs phase's sources among the bfs queries."""
+    rng = np.random.default_rng(rng_seed)
+    n = g.n_rows
+    params = {"bfs": {}, "khop": {"k": SERVE_KHOP_K},
+              "sssp": {"edge_weight": 1.0},
+              "ppr": {"max_iters": SERVE_PPR_ITERS, "eps": 0.0},
+              "gnn_infer": {"model": "gcn-cora/bit"}}
+    stream = []
+    for kind, count in SERVE_QUERIES.items():
+        srcs = [int(s) for s in rng.integers(0, n, count)]
+        if kind == "bfs":
+            srcs[:len(sources)] = sources
+        stream += [(kind, s, params[kind]) for s in srcs]
+    order = rng.permutation(len(stream))
+    return [stream[i] for i in order]
+
+
+def serve_run(g, stream, planner, check=False):
+    """Serve ``stream`` through a GraphQueryServer (max_batch 64, the
+    default 100 ms budget): SERVE_ARRIVAL queries every SERVE_GAP_S
+    seconds, ``poll()`` after each batch, then ``flush()``. With
+    ``check``, each handle is mapped to the launch that answered it (the
+    records a submit or poll appended, by kind and parameters). Returns
+    the server, the handles with their submit times, the wall and the
+    mapping."""
+    from repro_torch.engine import GraphQueryServer, ServerConfig
+
+    server = GraphQueryServer(planner=planner,
+                              config=ServerConfig(max_batch=SERVE_MAX_BATCH))
+    handles, owner = [], {}
+
+    def settle(n_records):
+        if not check:
+            return
+        new = server.launch_log[n_records:]
+        for i, (h, (kind, _, params), _) in enumerate(handles):
+            if i in owner or not h.done():
+                continue
+            key = (kind, tuple(sorted(params.items())))
+            recs = [r for r in new if (r.kind, r.params) == key]
+            owner[i] = recs[0] if len(recs) == 1 else None
+
+    sync()
+    t0 = time.monotonic()
+    for start in range(0, len(stream), SERVE_ARRIVAL):
+        for q in stream[start:start + SERVE_ARRIVAL]:
+            kind, src, params = q
+            n_records = len(server.launch_log)
+            t_submit = time.monotonic()
+            h = server.submit(g, kind, src, **params)
+            handles.append((h, q, t_submit))
+            settle(n_records)
+        n_records = len(server.launch_log)
+        server.poll()
+        settle(n_records)
+        time.sleep(SERVE_GAP_S)
+    n_records = len(server.launch_log)
+    server.flush()
+    settle(n_records)
+    sync()
+    return server, handles, time.monotonic() - t0, owner
+
+
+def trace_breakdown(traces):
+    """Latency of each trace (first span's start to the last one's end)
+    and the share of all trace time in each stage (exclusive times)."""
+    lat, stage = [], {}
+    for tr in traces:
+        start = min(s.start_s for s in tr.spans)
+        end = max(s.start_s + s.duration_s for s in tr.spans)
+        lat.append(end - start)
+        stack = list(tr.spans)
+        while stack:
+            s = stack.pop()
+            stage[s.name] = stage.get(s.name, 0.0) + s.exclusive_s
+            stack.extend(s.children)
+    total = sum(stage.values())
+    return lat, {k: v / total for k, v in sorted(stage.items())}
+
+
+def percentiles_ms(xs):
+    return {"p50": 1e3 * float(np.percentile(xs, 50)),
+            "p99": 1e3 * float(np.percentile(xs, 99))}
+
+
+def serve_faults(problems):
+    """Part (d): faults on R-MAT scale 16 (the spgemm phase's graph).
+
+    A scripted injector on ("bfs", "b2sr_cuda") with fail_threshold 2 and
+    an injected clock drives the breaker through open, skip, half-open,
+    re-open and close (tests/test_serving.py's scenario) on bfs queries
+    of SERVE_FAULT_HOPS hops (``max_iters``: a traversal on the ``b2sr``
+    word schemes takes seconds at this scale); a rate-1.0 rule
+    on every b2sr_cuda launch sends bfs, khop, sssp and ppr groups to
+    b2sr, whose answers must equal the healthy b2sr_cuda answers (ppr
+    within rtol 1e-4); the injector installed on the dispatch hook makes
+    a direct bfs raise. Every degraded launch must follow a fault the
+    injector fired or a skip of an open breaker.
+    """
+    import torch
+    from repro_torch.algorithms import bfs
+    from repro_torch.core.graphblas import GraphMatrix
+    from repro_torch.data.graphs import rmat_graph
+    from repro_torch.engine import (FaultInjector, GraphQueryServer,
+                                    InjectedFault, PlanCache, ServerConfig)
+    from repro_torch.engine.server import CLOSED, OPEN
+
+    part_s = {}
+    t_part = time.perf_counter()
+    n = 1 << SPGEMM_SCALE
+    rows, cols = rmat_graph(n, avg_degree=2 * EDGEFACTOR, seed=SEED)
+    g = GraphMatrix.from_coo(rows, cols, n, n, TILE_DIM, backend="b2sr_cuda",
+                             device=DEVICE)
+    rng = np.random.default_rng(SEED + 6)
+    srcs = [int(s) for s in rng.choice(np.flatnonzero(np.bincount(
+        rows, minlength=n)), 4, replace=False)]
+    kinds = {"bfs": {}, "khop": {"k": SERVE_KHOP_K},
+             "sssp": {"edge_weight": 1.0},
+             "ppr": {"max_iters": SERVE_PPR_ITERS, "eps": 0.0},
+             "bfs_hops": {"max_iters": SERVE_FAULT_HOPS}}
+
+    def serve(server, kind_list, sources=srcs):
+        hs = [(k, s, server.submit(g, k.split("_")[0], s, **kinds[k]))
+              for k in kind_list for s in sources]
+        server.flush()
+        return hs
+
+    healthy = {(k, s): h.result() for k, s, h in serve(
+        GraphQueryServer(planner=PlanCache()), kinds)}
+    full = [k for k in kinds if k != "bfs_hops"]
+    sync()
+    part_s["graph_and_healthy"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    audit = []
+
+    def audited(server, inj, fn):
+        before = (server.stats["degraded_launches"], inj.n_faults,
+                  server.stats["breaker_skips"])
+        out = fn()
+        d_deg, d_fault, d_skip = (a - b for a, b in zip(
+            (server.stats["degraded_launches"], inj.n_faults,
+             server.stats["breaker_skips"]), before))
+        audit.append((d_deg, d_fault, d_skip))
+        if d_deg > d_fault + d_skip:
+            problems.append(f"faults: {d_deg} degraded launches after "
+                            f"{d_fault} faults and {d_skip} skips")
+        return out
+
+    class Clock:
+        t = 100.0
+
+        def __call__(self):
+            return self.t
+
+    clk = Clock()
+    inj = FaultInjector(seed=0).fail(op="bfs", backend="b2sr_cuda",
+                                     script=[True] * 4)
+    srv = GraphQueryServer(
+        planner=PlanCache(), fault_injector=inj, clock=clk,
+        sleep=lambda s: None,
+        config=ServerConfig(max_retries=1, fail_threshold=2, cooldown_s=1.0,
+                            backoff_base_s=0.0))
+    steps = []
+    for dt in (0.0, 0.0, 1.0, 1.0, 1.0):
+        clk.t += dt
+        (_, s, h), = audited(srv, inj, lambda: serve(srv, ["bfs_hops"],
+                                                     srcs[:1]))
+        br = srv.breaker("bfs", "b2sr_cuda")
+        steps.append((h.degraded, h.backend_used, br.state, br.n_opens,
+                      inj.script_remaining("bfs", "b2sr_cuda")))
+        if not torch.equal(h.result(), healthy["bfs_hops", s]):
+            problems.append("faults: scripted bfs answer != healthy")
+    want = [(True, "b2sr", OPEN, 1, 2), (True, "b2sr", OPEN, 1, 2),
+            (True, "b2sr", OPEN, 2, 1), (True, "b2sr", OPEN, 3, 0),
+            (False, "b2sr_cuda", CLOSED, 3, 0)]
+    if steps != want:
+        problems.append(f"faults: breaker steps {steps} != {want}")
+    sync()
+    part_s["scripted"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    inj2 = FaultInjector(seed=1).fail(backend="b2sr_cuda", rate=1.0)
+    srv2 = GraphQueryServer(planner=PlanCache(), fault_injector=inj2,
+                            config=ServerConfig(backoff_base_s=0.0))
+    degraded = audited(srv2, inj2, lambda: serve(srv2, full))
+    ppr_rel = 0.0
+    for k, s, h in degraded:
+        got, ref = h.result(), healthy[k, s]
+        if not (h.degraded and h.backend_used == "b2sr"):
+            problems.append(f"faults: {k} not answered on b2sr")
+        if k == "ppr":
+            ppr_rel = max(ppr_rel, float(((got - ref).abs() / ref.abs()
+                                          .clamp_min(1e-30)).max()))
+            if not torch.allclose(got, ref, rtol=1e-4, atol=0):
+                problems.append("faults: degraded ppr != healthy")
+        elif not torch.equal(got, ref):
+            problems.append(f"faults: degraded {k} != healthy")
+
+    sync()
+    part_s["rate_rule"] = time.perf_counter() - t_part
+    with FaultInjector(seed=2).fail(backend="b2sr_cuda", rate=1.0):
+        try:
+            bfs(g, srcs[0])
+            problems.append("faults: installed injector did not fault bfs")
+        except InjectedFault:
+            pass
+    if not torch.equal(bfs(g, srcs[0]).levels, healthy["bfs", srcs[0]]):
+        problems.append("faults: bfs after uninstall != healthy")
+    return {"scale": SPGEMM_SCALE, "sources": srcs,
+            "breaker_steps": [list(s) for s in steps],
+            "scripted_stats": {k: srv.stats[k] for k in (
+                "launches", "degraded_launches", "retries", "breaker_skips",
+                "completed")},
+            "rate_rule": {"faults": inj2.n_faults, "checks": inj2.n_checks,
+                          **{k: srv2.stats[k] for k in (
+                              "launches", "degraded_launches", "retries",
+                              "completed")}},
+            "audit_degraded_faults_skips": audit,
+            "ppr_max_rel_diff": ppr_rel, "part_s": part_s}
+
+
+def phase_serve(g, sources, want):
+    """The serving front end on the full graph (after the gnn phase, whose
+    models and features it serves).
+
+    (a) SERVE_QUERIES through a GraphQueryServer on b2sr_cuda (max_batch
+        64, default budget), SERVE_ARRIVAL at a time SERVE_GAP_S apart,
+        ``poll()`` after each batch, a final ``flush()``: every handle
+        resolves on b2sr_cuda, no launch degrades, no query fails, every
+        breaker stays closed, spmm_bbb, spmm_dense, spmm_bbf and
+        pack_rows launch, every handle equals its LaunchRecord replayed
+        through ``launch_group`` bit for bit, and the bfs handles of the
+        bfs phase's sources equal SciPy's levels. Then the same stream
+        with ``obs.disabled()``, with telemetry on, and on without the
+        planner's sync (``planner.SYNC_LATENCY``), twice each, in turns.
+    (b) ``write_metrics`` to .prom and .json, read back with
+        ``parse_prometheus``; the completed-query counter equals the
+        server's count; ``dump_traces`` writes one trace a query.
+    (c) ``save_warmup``; a new server with a fresh PlanCache replays
+        every recipe; the first arrival batch, served again, adds no
+        plan-cache miss; the first query's latency cold (a fresh server
+        and PlanCache, no warmup) and warm, SERVE_RESTARTS times in
+        turns.
+    (d) faults on R-MAT scale 16 (:func:`serve_faults`).
+    """
+    import tempfile
+
+    import torch
+    from repro_torch import obs
+    from repro_torch.engine import GraphQueryServer, PlanCache
+    from repro_torch.engine import planner as planner_mod
+    from repro_torch.engine.batcher import _Pending, QueryHandle, launch_group
+    from repro_torch.engine.server import CLOSED
+    from repro_torch.obs import export as obs_export
+    from repro_torch.obs import metrics as obs_metrics
+
+    t_phase = time.perf_counter()
+    names = ("spmm_bbb", "spmm_dense", "spmm_bbf", "pack_rows")
+    stream = serve_stream(g, SEED + 5, sources)
+    problems = []
+    prev_reg = obs_metrics.set_registry(obs_metrics.MetricsRegistry())
+    reset_launches(names)
+    server, handles, wall, owner = serve_run(g, stream, PlanCache(),
+                                             check=True)
+    launches = read_launches("serve", names)
+    stats = dict(server.stats)
+    snap = server.stats()
+    n_q = len(stream)
+    for i, (h, (kind, src, _), _) in enumerate(handles):
+        try:
+            h.result()
+        except Exception as e:               # noqa: BLE001 — the verdict
+            problems.append(f"{kind}/{src} failed: {e!r}")
+            continue
+        if h.backend_used != "b2sr_cuda" or h.degraded:
+            problems.append(f"{kind}/{src} answered on {h.backend_used}")
+        if owner.get(i) is None:
+            problems.append(f"{kind}/{src}: no launch record")
+    if stats["degraded_launches"] or stats["failed_queries"]:
+        problems.append(f"degraded {stats['degraded_launches']}, failed "
+                        f"{stats['failed_queries']}")
+    if stats["completed"] != n_q:
+        problems.append(f"completed {stats['completed']} != {n_q}")
+    open_breakers = [k for k, b in snap["breakers"].items()
+                     if b["state"] != CLOSED]
+    if open_breakers:
+        problems.append(f"breakers not closed: {open_breakers}")
+
+    # every handle against its launch replayed on b2sr_cuda
+    replay_planner = PlanCache()
+    mismatches = 0
+    for rec in server.launch_log:
+        uniq = sorted(set(rec.sources))
+        qs = [_Pending(graph=g, kind=rec.kind, source=s, params=rec.params,
+                       handle=QueryHandle(None)) for s in uniq]
+        _, padded = launch_group(g, rec.kind, dict(rec.params), qs,
+                                 replay_planner)
+        if padded != rec.sources or rec.backend != "b2sr_cuda":
+            problems.append(f"replay of {rec.kind} launched {padded}")
+        got = {q.source: q.handle.result() for q in qs}
+        for i, (h, (_, src, _), _) in enumerate(handles):
+            if owner.get(i) is rec and not torch.equal(h.result(), got[src]):
+                mismatches += 1
+    if mismatches:
+        problems.append(f"{mismatches} handles != their replayed launch")
+    for i, s in enumerate(sources):
+        h = next(h for h, (k, src, _), _ in handles
+                 if k == "bfs" and src == s)
+        if not np.array_equal(h.result().cpu().numpy(), want[i]):
+            problems.append(f"bfs {s} != scipy")
+
+    traces = [h.trace for h, _, _ in handles]
+    by_kind = {}
+    for (h, (kind, _, _), t_submit), tr in zip(handles, traces):
+        by_kind.setdefault(kind, []).append(tr)
+    latency = {k: percentiles_ms(trace_breakdown(trs)[0])
+               for k, trs in by_kind.items()}
+    _, shares = trace_breakdown(traces)
+    missed = {}
+    for h, (kind, _, _), _ in handles:
+        missed[kind] = missed.get(kind, 0) + int(h.completed_at > h.deadline)
+
+    # (b) export
+    with tempfile.TemporaryDirectory() as tmp:
+        prom = obs_export.write_metrics(f"{tmp}/serve.prom")
+        js = obs_export.write_metrics(f"{tmp}/serve.json")
+        parsed = obs_export.parse_prometheus(open(prom).read())
+        completed = sum(parsed["server_queries_completed_total"].values())
+        json_completed = sum(json.load(open(js))["counters"][
+            "server_queries_completed_total"].values())
+        n_traces = server.dump_traces(f"{tmp}/traces.jsonl")
+        n_lines = len(open(f"{tmp}/traces.jsonl").read().splitlines())
+        warm_path = f"{tmp}/warmup.json"
+        n_recipes = server.save_warmup(warm_path)
+        if completed != stats["completed"] or json_completed != completed:
+            problems.append(f"exported completed {completed} != "
+                            f"{stats['completed']}")
+        if n_traces != stats["completed"] or n_lines != n_traces:
+            problems.append(f"dumped {n_traces} traces ({n_lines} lines)")
+
+        # (c) warm restart: cold and warm first batches
+        first = stream[:SERVE_ARRIVAL]
+
+        def first_batch(srv):
+            sync()
+            t0 = time.monotonic()
+            hs = [srv.submit(g, k, s, **p) for k, s, p in first]
+            srv.flush()
+            sync()
+            return hs[0].completed_at - t0, hs
+
+        cold, warm = [], []
+        for _ in range(SERVE_RESTARTS):       # in turns: cold, warm
+            cold.append(first_batch(GraphQueryServer(planner=PlanCache()))[0])
+            warm_srv = GraphQueryServer(planner=PlanCache())
+            warm_srv.register(g)
+            replayed = warm_srv.warmup(warm_path)
+            misses = warm_srv.planner.misses
+            warm_s, warm_hs = first_batch(warm_srv)
+            warm.append(warm_s)
+            if replayed != n_recipes or warm_srv.stats["warmup_failed"] or \
+                    warm_srv.stats["warmup_skipped"]:
+                problems.append(f"warmup replayed {replayed} of {n_recipes}")
+            if warm_srv.planner.misses != misses:
+                problems.append("warm first batch missed the plan cache")
+            if any(h.degraded for h in warm_hs):
+                problems.append("warm first batch degraded")
+    t_ab = time.perf_counter() - t_phase
+
+    # telemetry's cost: the same stream with obs off, on, and on without
+    # the planner's sync at the end of each latency window, in turns
+    t0 = time.perf_counter()
+    wall_off, wall_on, wall_no_sync = [], [], []
+    for _ in range(2):
+        with obs.disabled():
+            wall_off.append(serve_run(g, stream, PlanCache())[2])
+        wall_on.append(serve_run(g, stream, PlanCache())[2])
+        planner_mod.SYNC_LATENCY = False
+        try:
+            wall_no_sync.append(serve_run(g, stream, PlanCache())[2])
+        finally:
+            planner_mod.SYNC_LATENCY = True
+    obs_metrics.set_registry(prev_reg)
+    t_telemetry = time.perf_counter() - t0
+
+    faults = serve_faults(problems)
+    row = {"phase": "serve", "ok": not problems, "problems": problems[:10],
+           "queries": {k: v for k, v in SERVE_QUERIES.items()},
+           "launches": launches, "wall_s": wall, "qps": n_q / wall,
+           "latency_ms_by_kind": latency, "trace_share": shares,
+           "deadline_missed_by_kind": missed,
+           "flushes": {"deadline": stats["deadline_flushes"],
+                       "fill": stats["fill_flushes"],
+                       "forced": stats["flushes"] - stats["deadline_flushes"]
+                       - stats["fill_flushes"]},
+           "plan_cache": snap["plan_cache"], "deduped": stats["deduped"],
+           "group_launches": stats["launches"],
+           "telemetry": {"wall_s_on_first": wall, "wall_s_off": wall_off,
+                         "wall_s_on": wall_on,
+                         "wall_s_on_no_sync": wall_no_sync},
+           "export": {"completed": completed, "traces": n_traces},
+           "warm_restart": {"recipes": n_recipes, "replayed": replayed,
+                            "first_query_cold_ms": [1e3 * x for x in cold],
+                            "first_query_warm_ms": [1e3 * x for x in warm]},
+           "faults": faults,
+           "part_s": {"stream_checks_export_restart": t_ab,
+                      "telemetry_streams": t_telemetry,
+                      "faults": sum(faults["part_s"].values())},
+           "phase_wall_s": time.perf_counter() - t_phase}
+    emit(row)
+    if problems:
+        fail("serve", "; ".join(problems[:5]))
+    return launches
+
+
 def backward_node(root, name: str):
     """The first node of the autograd graph under ``root`` whose name holds
     ``name`` (breadth first)."""
@@ -2863,6 +3316,11 @@ def main() -> int:
     pack_rows_ = phase_bitpack(g)
     gnn_rows, ls, gnn_runs, features = phase_gnn(g, adj, deg, srcs)
     dense_launches += ls["spmm_dense"]
+    serve_ls = phase_serve(g, sources, want)
+    bbb_launches += serve_ls["spmm_bbb"]
+    dense_launches += serve_ls["spmm_dense"]
+    for k in ("spmm_bbf", "pack_rows"):
+        ls[k] += serve_ls[k]
     train_row, train_launches, train_runs = phase_train(g, adj, deg,
                                                         features)
     dense_launches += train_launches

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.algorithms import direction as direction_mod
 from repro_torch.algorithms.direction import DirectionConfig
+from repro_torch.core import dispatch
 from repro_torch.core.descriptor import Descriptor
 from repro_torch.core.graphblas import GraphMatrix
 from repro_torch.core.operands import BitVector
@@ -49,6 +50,7 @@ def _check_max_iters(max_iters: Optional[int], n: int) -> int:
     return max_iters
 
 
+@dispatch.scoped
 def bfs(g: GraphMatrix, source, max_iters: Optional[int] = None,
         row_chunk: Optional[int] = None,
         direction: Union[str, DirectionConfig, None] = "auto") -> BFSResult:
@@ -107,5 +109,6 @@ def bfs(g: GraphMatrix, source, max_iters: Optional[int] = None,
         frontier = nxt
         it += 1
         live = nnz_f > 0
-    return BFSResult(levels=levels, n_iterations=it,
-                     directions=direction_mod.trace_tuple(trace, it))
+    dirs = direction_mod.trace_tuple(trace, it)
+    direction_mod.observe_trace(dirs, kernel="bfs")
+    return BFSResult(levels=levels, n_iterations=it, directions=dirs)

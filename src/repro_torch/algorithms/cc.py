@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.algorithms import direction as direction_mod
 from repro_torch.algorithms.direction import DirectionConfig
+from repro_torch.core import dispatch
 from repro_torch.core.descriptor import Descriptor
 from repro_torch.core.graphblas import GraphMatrix
 from repro_torch.core.operands import BitVector
@@ -38,6 +39,7 @@ class CCResult:
     directions: Tuple[str, ...] = ()
 
 
+@dispatch.scoped
 def connected_components(g: GraphMatrix, max_iters: Optional[int] = None,
                          row_chunk: Optional[int] = None,
                          direction: Union[str, DirectionConfig, None] = "auto"
@@ -72,5 +74,7 @@ def connected_components(g: GraphMatrix, max_iters: Optional[int] = None,
         f = f_new
         it += 1
         live = nnz_changed > 0
+    dirs = direction_mod.trace_tuple(trace, it)
+    direction_mod.observe_trace(dirs, kernel="cc")
     return CCResult(labels=f.to(torch.int32), n_iterations=it,
-                    directions=direction_mod.trace_tuple(trace, it))
+                    directions=dirs)

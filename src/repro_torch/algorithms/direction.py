@@ -122,6 +122,35 @@ def trace_tuple(trace: Sequence[int], n_iterations: Optional[int] = None
     return tuple("pull" if v == PULL else "push" for v in arr if v != _NONE)
 
 
+def observe_trace(directions: Tuple[str, ...], kernel: str = "bfs",
+                  registry=None) -> None:
+    """Mirror one traversal's direction trace into the metrics registry.
+
+    Emits ``traversal_iterations_total{direction,kernel}`` (one per
+    iteration), ``direction_switches_total{transition}`` for each change
+    of regime, and one ``direction_switch`` event per switch carrying the
+    iteration index, so a serving fleet sees when its traversals flip to
+    pull without keeping raw traces.
+    """
+    from repro_torch.obs import metrics as obs_metrics
+    if not obs_metrics.enabled() or not directions:
+        return
+    reg = registry if registry is not None else obs_metrics.get_registry()
+    iters = reg.counter("traversal_iterations_total",
+                        "traversal iterations by direction run",
+                        ("direction", "kernel"))
+    for d in directions:
+        iters.inc(direction=d, kernel=kernel)
+    switches = reg.counter("direction_switches_total",
+                           "push/pull regime changes", ("transition",))
+    for i in range(1, len(directions)):
+        if directions[i] != directions[i - 1]:
+            t = f"{directions[i - 1]}->{directions[i]}"
+            switches.inc(transition=t)
+            reg.event("direction_switch", kernel=kernel, iteration=i,
+                      transition=t)
+
+
 def check_monotone(directions: Tuple[str, ...]) -> bool:
     """The hysteresis invariant: the pull iterations form one contiguous
     regime (push* pull* push*) — no flapping."""

@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import dispatch
 from repro_torch.core.b2sr import combine_tiles, count_bits
 from repro_torch.core.descriptor import Descriptor
 from repro_torch.core.graphblas import GraphMatrix
@@ -37,6 +38,7 @@ class KHopResult:
     n_iterations: int        # mxm steps run, counting A itself (early exit)
 
 
+@dispatch.scoped
 def khop_reachability(g: GraphMatrix, k: int,
                       row_chunk: Optional[int] = None) -> KHopResult:
     """All-pairs <= k-hop reachability matrix by repeated masked mxm."""
@@ -61,6 +63,7 @@ def khop_reachability(g: GraphMatrix, k: int,
                       n_iterations=it)
 
 
+@dispatch.scoped
 def khop_frontier(g: GraphMatrix, source: int, k: int,
                   row_chunk: Optional[int] = None) -> torch.Tensor:
     """Single-source <= k-hop neighbourhood as a bool[n] vector.

@@ -18,6 +18,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.core import dispatch
 from repro_torch.core.descriptor import Descriptor
 from repro_torch.core.graphblas import GraphMatrix
 from repro_torch.core.semiring import ARITHMETIC
@@ -51,6 +52,7 @@ def _power_iteration(g: GraphMatrix, pr: torch.Tensor,
     return PageRankResult(ranks=pr, n_iterations=it)
 
 
+@dispatch.scoped
 def pagerank(g: GraphMatrix, alpha: float = 0.85, max_iters: int = 10,
              eps: float = 1e-9,
              row_chunk: Optional[int] = None) -> PageRankResult:
@@ -64,6 +66,7 @@ def pagerank(g: GraphMatrix, alpha: float = 0.85, max_iters: int = 10,
     return _power_iteration(g, pr0, update, max_iters, eps, row_chunk)
 
 
+@dispatch.scoped
 def ppr(g: GraphMatrix, seed: Union[int, torch.Tensor, np.ndarray],
         alpha: float = 0.85, max_iters: int = 10, eps: float = 1e-9,
         row_chunk: Optional[int] = None) -> PageRankResult:

@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import dispatch
 from repro_torch.core.descriptor import Descriptor
 from repro_torch.core.graphblas import GraphMatrix
 from repro_torch.core.semiring import MIN_PLUS
@@ -28,6 +29,7 @@ class SSSPResult:
     n_iterations: int
 
 
+@dispatch.scoped
 def sssp(g: GraphMatrix, source, edge_weight: float = 1.0,
          max_iters: Optional[int] = None,
          row_chunk: Optional[int] = None) -> SSSPResult:

@@ -10,9 +10,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.core import dispatch
 from repro_torch.core.graphblas import GraphMatrix
 
 
+@dispatch.scoped
 def triangle_count(g: GraphMatrix, row_chunk: Optional[int] = None) -> int:
     """Number of triangles in the undirected graph of ``g`` (exact)."""
     return int(g.tri_count(row_chunk=row_chunk))

@@ -27,12 +27,29 @@ Implementations have the signature ``fn(g, rhs, call)`` and return the
 raw result: packed words, dense values, a B2SR (boolean SpGEMM) or an
 int64 scalar (``mxm_sum``). Backend modules are imported
 on the first lookup for that backend.
+
+Two hooks watch resolutions, as in the reference: the resolve hook
+(``set_resolve_hook``, the fault injector's) may abort one, the observe
+hook (``set_observe_hook``, ``repro_torch.obs``'s counter) sees each one,
+aborted or not. The reference resolves while it traces: once per key per
+algorithm call, once per key when a plan is built, never on a warm plan.
+The port resolves on every ``GraphMatrix`` call, so every loop iteration;
+a **resolution scope** (:func:`scoped`, a ``contextvars`` variable) makes
+the hooks fire where the reference's would. A public algorithm call, a
+bare ``GraphMatrix`` call and a plan's first call each open one; within
+it the hooks fire on the first resolution of each key only, and a warm
+plan's calls (:func:`muted`) fire none. ``stats`` still counts every
+resolution.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
+import functools
 import importlib
+import time
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple, Union
 
 import torch
@@ -67,6 +84,120 @@ _LOADED: set = set()
 #: resolved through here, and which row it resolved last.
 stats = {"resolves": 0}
 last_key: Optional[Key] = None
+
+
+class InjectedFault(RuntimeError):
+    """A deterministic fault raised through the resolve hook.
+
+    Stands in for a real kernel or backend failure (a build error, a
+    launch error, device loss), so that the serving layer's fallback and
+    circuit breakers can be tested without one. Raised by the engine's
+    :class:`~repro_torch.engine.faults.FaultInjector` once it is installed
+    with :func:`set_resolve_hook`.
+    """
+
+
+_RESOLVE_HOOK: Optional[Callable[[Key], None]] = None
+
+
+def set_resolve_hook(hook: Optional[Callable[[Key], None]]
+                     ) -> Optional[Callable[[Key], None]]:
+    """Install (or clear, with ``None``) the resolve hook; returns the
+    previous one.
+
+    The hook is called with the full key on a successful :func:`resolve`
+    (once per key per resolution scope) and may raise, typically
+    :class:`InjectedFault`, to make that resolution fail where a broken
+    kernel would.
+    """
+    global _RESOLVE_HOOK
+    prev = _RESOLVE_HOOK
+    _RESOLVE_HOOK = hook
+    return prev
+
+
+_OBSERVE_HOOK: Optional[Callable[[Key, float, Optional[BaseException]],
+                                 None]] = None
+
+
+def set_observe_hook(hook: Optional[Callable[[Key, float,
+                                              Optional[BaseException]],
+                                             None]]
+                     ) -> Optional[Callable]:
+    """Install (or clear) the read-only observe hook; returns the previous
+    one.
+
+    Called as ``hook(key, duration_s, err)`` wherever the resolve hook
+    would be, and also when that hook aborted the resolution (``err`` is
+    what it raised) or the row is missing (``err`` is the
+    :class:`NotImplementedError`). ``duration_s`` is the resolve time, the
+    backend's lazy import included. Anything it raises is swallowed:
+    observation cannot change what runs. ``repro_torch.obs`` installs a
+    registry counter on import.
+    """
+    global _OBSERVE_HOOK
+    prev = _OBSERVE_HOOK
+    _OBSERVE_HOOK = hook
+    return prev
+
+
+def _observe(key: Key, t0: float, err: Optional[BaseException]) -> None:
+    if _OBSERVE_HOOK is None:
+        return
+    try:
+        _OBSERVE_HOOK(key, time.perf_counter() - t0, err)
+    except Exception:                        # noqa: BLE001 — read-only hook
+        pass
+
+
+class _Scope:
+    """The keys whose hooks fired in one resolution scope; a muted scope
+    fires none."""
+
+    __slots__ = ("seen", "muted")
+
+    def __init__(self, muted: bool = False):
+        self.seen: set = set()
+        self.muted = muted
+
+
+_SCOPE: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_resolution_scope", default=None)
+
+
+@contextlib.contextmanager
+def _scope(muted: bool = False):
+    token = _SCOPE.set(_Scope(muted))
+    try:
+        yield
+    finally:
+        _SCOPE.reset(token)
+
+
+def scoped(fn: Callable) -> Callable:
+    """Decorator: ``fn`` runs in a resolution scope, its own unless one is
+    open already (a public algorithm call, a bare ``GraphMatrix`` call)."""
+
+    @functools.wraps(fn)
+    def inner(*args, **kw):
+        if _SCOPE.get() is not None:
+            return fn(*args, **kw)
+        with _scope():
+            return fn(*args, **kw)
+
+    return inner
+
+
+def fresh_scope():
+    """A new resolution scope, even inside another (a plan's first call:
+    the reference traces each plan on its own)."""
+    return _scope()
+
+
+def muted():
+    """A scope in which no resolution fires a hook (a warm plan's call:
+    the reference's compiled plan resolves nothing)."""
+    return _scope(muted=True)
 
 
 @dataclasses.dataclass
@@ -127,18 +258,37 @@ def resolve(op: str, rhs: str, out: str, backend: str, bucketed: bool,
             masked: bool, sharded: bool = False) -> Callable:
     """Look up the implementation for one fully-specified Table row."""
     global last_key
+    t0 = time.perf_counter()
     key: Key = (op, rhs, out, backend, bucketed, masked, sharded)
     _ensure_backend(backend)
     fn = _REGISTRY.get(key)
-    if fn is not None:
-        stats["resolves"] += 1
-        last_key = key
-        return fn
-    raise NotImplementedError(
-        f"no kernel registered for op={op} rhs={rhs} out={out} "
-        f"backend={backend} bucketed={bucketed} masked={masked} "
-        f"sharded={sharded}; registered rows: "
-        f"{sorted(k for k in _REGISTRY if k[0] == op)}")
+    scope = _SCOPE.get()
+    hooked = (_RESOLVE_HOOK is not None or _OBSERVE_HOOK is not None) and (
+        scope is None or not (scope.muted or key in scope.seen))
+    if hooked and scope is not None:
+        scope.seen.add(key)
+    if fn is None:
+        err = NotImplementedError(
+            f"no kernel registered for op={op} rhs={rhs} out={out} "
+            f"backend={backend} bucketed={bucketed} masked={masked} "
+            f"sharded={sharded}; registered rows: "
+            f"{sorted(k for k in _REGISTRY if k[0] == op)}")
+        if hooked:
+            _observe(key, t0, err)
+        raise err
+    if hooked:
+        if _RESOLVE_HOOK is not None:
+            try:
+                _RESOLVE_HOOK(key)
+            except BaseException as e:
+                # the observe hook still sees the aborted resolution:
+                # injected faults land in the telemetry as real ones would
+                _observe(key, t0, e)
+                raise
+        _observe(key, t0, None)
+    stats["resolves"] += 1
+    last_key = key
+    return fn
 
 
 def registered_keys(load_all: bool = False) -> Tuple[Key, ...]:

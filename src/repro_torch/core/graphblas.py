@@ -269,6 +269,7 @@ class GraphMatrix:
         return pack_bitvector(x, self.tile_dim, self.n_rows)
 
     # -- the generic operation ----------------------------------------------
+    @dispatch.scoped
     def mxv(self, x, semiring: Optional[Semiring] = None,
             desc: Optional[Descriptor] = None, *, a_value: float = 1.0,
             out_dtype=None, out=None, mask=_UNSET, complement=_UNSET,
@@ -329,6 +330,7 @@ class GraphMatrix:
         return self.mxv(x, semiring, desc.replace_with(transpose_a=True),
                         **kw)
 
+    @dispatch.scoped
     def mxm(self, other=None, semiring: Optional[Semiring] = None,
             desc: Optional[Descriptor] = None, *, out=None,
             with_transpose: bool = True, out_dtype=None, mask=_UNSET,
@@ -421,6 +423,7 @@ class GraphMatrix:
                                          self.tile_dim)
         return self._merge_unreplaced(y, desc, out, out_kind, call)
 
+    @dispatch.scoped
     def tri_count(self, row_chunk: Optional[int] = None) -> torch.Tensor:
         """Σ (L·Lᵀ ⊙ L), L the strict lower triangle: the triangle count of
         the undirected graph, as an exact int64 scalar tensor.

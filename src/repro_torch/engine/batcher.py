@@ -13,14 +13,20 @@ source and are dropped at scatter-back; columns are independent, so a
 duplicate costs only lanes that word packing had reserved anyway.
 
 ``gnn_infer`` queries group by model name (a query parameter), so each
-model's queries share one forward. The reference's trace spans and
-registry counters wait for the port's telemetry slice (ROADMAP Queue 1
-item 8).
+model's queries share one forward.
+
+Telemetry (DESIGN.md §14): each handle carries a trace (``submit`` and
+its own ``queue_wait`` span, then the group's shared ``launch`` span,
+with the planner's ``plan_resolve`` nested in it, and ``scatter_back``),
+and every launch counts into ``engine_launches_total{kind,backend}`` and
+``engine_deduped_total{kind}``. ``repro_torch.engine.server`` builds on
+the same launch core and stamps its serving verdicts on the handles.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -28,6 +34,8 @@ import numpy as np
 from repro_torch.core.graphblas import GraphMatrix
 from repro_torch.engine import queries
 from repro_torch.engine.planner import PlanCache
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 
 def _next_pow2(n: int) -> int:
@@ -91,15 +99,27 @@ class BatchFlushError(RuntimeError):
 class QueryHandle:
     """Future-style result slot; ``result()`` flushes the owning batcher.
 
+    Serving metadata rides on the handle once it resolves:
+    ``backend_used`` names the backend that produced the answer,
+    ``degraded`` is True when the server answered on a fallback backend
+    instead of the graph's own, ``completed_at`` is the server clock's
+    time of the answer and ``deadline`` the query's deadline on it.
+    ``trace`` holds the query's spans (None while observability is off).
+
     The first outcome wins (``_fulfill`` / ``_fail`` ignore later calls),
     so after a failure every ``result()`` raises the same error object.
     """
 
-    def __init__(self, batcher: Optional["QueryBatcher"]):
+    def __init__(self, batcher):
         self._batcher = batcher
         self._result: Any = None
         self._error: Optional[BaseException] = None
         self._done = False
+        self.backend_used: Optional[str] = None
+        self.degraded: bool = False
+        self.completed_at: Optional[float] = None
+        self.deadline: Optional[float] = None
+        self.trace = obs_trace.new_trace()
 
     def done(self) -> bool:
         return self._done
@@ -128,6 +148,9 @@ class _Pending:
     source: int
     params: Tuple[Tuple[str, Any], ...]
     handle: QueryHandle
+    # monotonic admission time: the start of the queue_wait span (real
+    # time, whatever clock a server's deadlines run on)
+    submitted_at: float = 0.0
 
 
 class QueryBatcher:
@@ -152,11 +175,16 @@ class QueryBatcher:
     # -- submission ---------------------------------------------------------
     def submit(self, graph: GraphMatrix, kind: str, source: int,
                **params) -> QueryHandle:
+        t0 = time.monotonic()
         src = validate_query(graph, kind, source)
         handle = QueryHandle(self)
+        if handle.trace is not None:
+            handle.trace.attrs.update(kind=kind, source=src)
+            handle.trace.add_span("submit", t0, time.monotonic())
         self._pending.append(_Pending(graph=graph, kind=kind, source=src,
                                       params=tuple(sorted(params.items())),
-                                      handle=handle))
+                                      handle=handle,
+                                      submitted_at=time.monotonic()))
         self.n_queries += 1
         return handle
 
@@ -225,31 +253,65 @@ def launch_group(g: GraphMatrix, kind: str, params: dict,
                  ) -> Tuple[int, Tuple[int, ...]]:
     """Run one coalesced group as a single padded batched launch.
 
-    Identical in-flight queries are deduplicated: duplicate sources share
-    one batch column and every duplicate handle is fulfilled from it.
+    The launch core under both :class:`QueryBatcher` and the server
+    (which passes a fallback backend's view of the graph). Identical
+    in-flight queries are deduplicated: duplicate sources share one batch
+    column and every duplicate handle is fulfilled from it.
     Returns ``(n_deduped, padded_sources)``: how many queries shared a
     column, and the padded source tuple that was launched.
+
+    The group gets one shared set of spans, ``launch`` (the planner's
+    ``plan_resolve`` nests in it through the ambient trace) and
+    ``scatter_back``, adopted into every member handle's trace beside
+    that handle's own ``queue_wait``.
     """
-    sources = np.asarray([q.source for q in qs], np.int64)
-    uniq, inv = np.unique(sources, return_inverse=True)
-    s_pad = _next_pow2(uniq.size)
-    # pad with the first source; the padding columns are dropped below
-    padded = np.concatenate(
-        [uniq, np.full(s_pad - uniq.size, uniq[0], np.int64)])
-    if kind == "bfs":
-        out = queries.msbfs(g, padded, planner=planner, **params).levels
-    elif kind == "khop":
-        out = queries.mskhop(g, padded, planner=planner, **params)
-    elif kind == "sssp":
-        out = queries.ms_sssp(g, padded, planner=planner,
-                              **params).distances
-    elif kind == "ppr":
-        out = queries.batched_ppr(g, padded, planner=planner, **params).ranks
-    elif kind == "gnn_infer":
-        out = queries.gnn_infer(g, padded, planner=planner, **params).logits
-    else:
-        raise NotImplementedError(f"query kind {kind!r} has no engine "
-                                  f"launch in the port")
-    for q, col in zip(qs, inv.reshape(-1)):
-        q.handle._fulfill(out[:, int(col)])
-    return len(qs) - uniq.size, tuple(int(s) for s in padded)
+    group_trace = obs_trace.new_trace("group", kind=kind,
+                                      backend=g.backend)
+    if group_trace is not None:
+        t_start = time.monotonic()
+        for q in qs:
+            if q.handle.trace is not None and q.submitted_at:
+                q.handle.trace.add_span("queue_wait", q.submitted_at,
+                                        t_start)
+    with obs_trace.use(group_trace):
+        with obs_trace.current_span("launch", kind=kind,
+                                    backend=g.backend, n_queries=len(qs)):
+            sources = np.asarray([q.source for q in qs], np.int64)
+            uniq, inv = np.unique(sources, return_inverse=True)
+            s_pad = _next_pow2(uniq.size)
+            # pad with the first source; the padding columns are dropped
+            padded = np.concatenate(
+                [uniq, np.full(s_pad - uniq.size, uniq[0], np.int64)])
+            if kind == "bfs":
+                out = queries.msbfs(g, padded, planner=planner,
+                                    **params).levels
+            elif kind == "khop":
+                out = queries.mskhop(g, padded, planner=planner, **params)
+            elif kind == "sssp":
+                out = queries.ms_sssp(g, padded, planner=planner,
+                                      **params).distances
+            elif kind == "ppr":
+                out = queries.batched_ppr(g, padded, planner=planner,
+                                          **params).ranks
+            elif kind == "gnn_infer":
+                out = queries.gnn_infer(g, padded, planner=planner,
+                                        **params).logits
+            else:
+                raise NotImplementedError(f"query kind {kind!r} has no "
+                                          f"engine launch in the port")
+        with obs_trace.current_span("scatter_back", n_queries=len(qs)):
+            for q, col in zip(qs, inv.reshape(-1)):
+                q.handle._fulfill(out[:, int(col)])
+    if group_trace is not None:
+        for q in qs:
+            if q.handle.trace is not None:
+                q.handle.trace.adopt(group_trace.spans)
+    n_dedup = len(qs) - uniq.size
+    if obs_metrics.enabled():
+        reg = obs_metrics.get_registry()
+        reg.counter("engine_launches_total", "coalesced group launches",
+                    ("kind", "backend")).inc(kind=kind, backend=g.backend)
+        reg.counter("engine_deduped_total",
+                    "in-flight duplicate queries sharing a batch column",
+                    ("kind",)).inc(n_dedup, kind=kind)
+    return n_dedup, tuple(int(s) for s in padded)

@@ -20,20 +20,49 @@ a :class:`PlanKey` built from
     batcher also rounds widths up to powers of two),
   - the descriptor fields the loop bakes in (:func:`descriptor_key`).
 
-Eviction is LRU with a fixed capacity. The reference's telemetry hooks
-(cache counters, launch-latency histograms, cost accounting and trace
-spans) wait for the port's telemetry slice (ROADMAP Queue 1 item 8), and
-the ``mesh`` field stays None until the multi-GPU slice (item 9).
+Eviction is LRU with a fixed capacity. The ``mesh`` field stays None
+until the multi-GPU slice (ROADMAP Queue 1 item 9).
+
+Telemetry, as the reference's (DESIGN.md §14): the cache counts hits,
+misses and evictions into ``plan_cache_{hits,misses,evictions}_total
+{kind,backend}`` and opens a ``plan_resolve`` span on the ambient trace;
+each plan call lands one ``launch_latency_s`` observation, labeled by
+the plan-key coordinates, and tags the enclosing span with
+``first_call`` / ``op``. On a CUDA graph the window ends after
+``torch.cuda.synchronize`` (``SYNC_LATENCY``), so the histogram holds
+finished work; with observability off no sync is added. With cost accounting on, a plan's
+first call is counted (``repro_torch.obs.cost``) into ``Plan.cost``.
+
+Dispatch hooks fire where the reference's would: a plan's first call runs
+in a fresh resolution scope (the reference traces it), a warm plan's calls
+in a muted one (a compiled plan resolves nothing; see
+``repro_torch.core.dispatch``). A plan turns warm once a call completes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import OrderedDict
 from typing import Callable, Optional, Tuple
 
+import torch
+
+from repro_torch.core import dispatch
 from repro_torch.core.descriptor import Descriptor
 from repro_torch.core.graphblas import GraphMatrix
+from repro_torch.obs import cost as obs_cost
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+
+#: Labels the planner stamps on its registry series.
+_CACHE_LABELS = ("kind", "backend")
+_LAUNCH_LABELS = ("op", "backend", "tile_dim", "bucketed", "sharded")
+
+#: End a CUDA plan's ``launch_latency_s`` window after a device sync (the
+#: histogram holds finished work). False ends it when the call returns,
+#: which times the host's launches only and adds no sync.
+SYNC_LATENCY = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,15 +94,54 @@ def descriptor_key(desc: Descriptor,
 
 @dataclasses.dataclass
 class Plan:
-    """A cached batched query loop; ``n_calls`` counts its launches."""
+    """A cached batched query loop; ``n_calls`` counts its launches.
+
+    ``cost`` is the plan's counted cost (FLOPs / HBM bytes / wire bytes
+    per launch and each hand kernel's share), filled on the first call
+    while :func:`repro_torch.obs.cost.set_cost_accounting` is on, else
+    None. Every call lands one observation in the ``launch_latency_s``
+    histogram, labeled by the plan-key coordinates.
+    """
 
     key: PlanKey
     fn: Callable
     n_calls: int = 0
+    cost: Optional[dict] = None
+    warm: bool = False
+
+    def _labels(self) -> dict:
+        return {"op": self.key.kernel, "backend": self.key.backend,
+                "tile_dim": self.key.tile_dim,
+                "bucketed": self.key.bucket_layout is not None,
+                "sharded": self.key.mesh is not None}
 
     def __call__(self, *args, **kw):
+        first = not self.warm
         self.n_calls += 1
-        return self.fn(*args, **kw)
+        with dispatch.fresh_scope() if first else dispatch.muted():
+            out = self._run(first, args, kw)
+        self.warm = True
+        return out
+
+    def _run(self, first: bool, args, kw):
+        if not obs_metrics.enabled():
+            return self.fn(*args, **kw)
+        if first and self.cost is None and obs_cost.cost_accounting_enabled():
+            self.cost = obs_cost.analyze_plan(self.fn, args, kw)
+            obs_cost.record_plan_cost(self.cost, self.key.kernel,
+                                      self.key.backend, self.key.tile_dim)
+        # tag the enclosing launch span: a first call pays the work-item
+        # cuts and the first kernel builds inside this launch
+        obs_trace.annotate(first_call=first, op=self.key.kernel)
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kw)
+        if SYNC_LATENCY and self.key.device.startswith("cuda"):
+            torch.cuda.synchronize(self.key.device)
+        obs_metrics.get_registry().histogram(
+            "launch_latency_s", "plan launch wall time",
+            _LAUNCH_LABELS).observe(time.perf_counter() - t0,
+                                    **self._labels())
+        return out
 
 
 def plan_key(g: GraphMatrix, kernel: str, batch_width: int,
@@ -91,13 +159,21 @@ def plan_key(g: GraphMatrix, kernel: str, batch_width: int,
 
 
 class PlanCache:
-    """LRU cache of :class:`Plan` objects with hit/miss/eviction counts."""
+    """LRU cache of :class:`Plan` objects with hit/miss/eviction counts.
 
-    def __init__(self, capacity: int = 32):
+    The counts live in one dict (:meth:`stats` / :meth:`reset_stats`) and
+    are mirrored into the metrics registry (``registry``, or the default
+    one at emit time) as ``plan_cache_{hits,misses,evictions}_total
+    {kind,backend}``.
+    """
+
+    def __init__(self, capacity: int = 32,
+                 registry: Optional["obs_metrics.MetricsRegistry"] = None):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         self.capacity = capacity
         self._plans: "OrderedDict[PlanKey, Plan]" = OrderedDict()
+        self._registry = registry
         self._stats = {"hits": 0, "misses": 0, "evictions": 0}
 
     @property
@@ -121,19 +197,29 @@ class PlanCache:
         for k in self._stats:
             self._stats[k] = 0
 
+    def _count(self, what: str, key: PlanKey) -> None:
+        self._stats[what] += 1
+        if obs_metrics.enabled():
+            reg = self._registry or obs_metrics.get_registry()
+            reg.counter(f"plan_cache_{what}_total",
+                        f"plan cache {what}", _CACHE_LABELS).inc(
+                kind=key.kernel, backend=key.backend)
+
     def get(self, key: PlanKey, builder: Callable[[], Callable]) -> Plan:
         """The plan for ``key``, building (and possibly evicting) on a miss."""
         plan = self._plans.get(key)
-        if plan is not None:
-            self._plans.move_to_end(key)
-            self._stats["hits"] += 1
-            return plan
-        self._stats["misses"] += 1
-        plan = Plan(key=key, fn=builder())
-        self._plans[key] = plan
-        while len(self._plans) > self.capacity:
-            self._plans.popitem(last=False)
-            self._stats["evictions"] += 1
+        with obs_trace.current_span("plan_resolve", cache_hit=plan is not None,
+                                    op=key.kernel, backend=key.backend):
+            if plan is not None:
+                self._plans.move_to_end(key)
+                self._count("hits", key)
+                return plan
+            self._count("misses", key)
+            plan = Plan(key=key, fn=builder())
+            self._plans[key] = plan
+            while len(self._plans) > self.capacity:
+                old_key, _ = self._plans.popitem(last=False)
+                self._count("evictions", old_key)
         return plan
 
     def __len__(self) -> int:

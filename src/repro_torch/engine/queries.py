@@ -197,8 +197,10 @@ def msbfs(g: GraphMatrix, sources: Sequence[int],
             torch.arange(src.size, device=g.device)] = 0
     levels, it, trace = plan(_one_hot_frontier(g, src, s_pad), levels0,
                              max_iters, src.size)
+    dirs = direction_mod.trace_tuple(trace, it)
+    direction_mod.observe_trace(dirs, kernel="msbfs")
     return MSBFSResult(levels=levels[:, : src.size], n_iterations=it,
-                       directions=direction_mod.trace_tuple(trace, it))
+                       directions=dirs)
 
 
 # ---------------------------------------------------------------------------

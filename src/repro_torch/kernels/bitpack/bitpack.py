@@ -29,6 +29,7 @@ from repro_torch.core.b2sr import TILE_DIMS, ceil_div
 from repro_torch.core.words import WORD
 from repro_torch.kernels import common
 from repro_torch.kernels.bitpack import ref
+from repro_torch.obs.cost import counted, nbytes
 
 SOURCE = Path(__file__).with_name("bitpack.cu")
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -56,6 +57,7 @@ def _entries(x: torch.Tensor, name: str) -> torch.Tensor:
     return x
 
 
+@counted(lambda out, x, t: (nbytes(x, out), 2 * x.numel()))  # test, OR
 def pack_rows(x: torch.Tensor, t: int) -> torch.Tensor:
     """``[n, D]`` -> ``int32[ceil(n/t), D]``: word ``[c, j]`` bit ``r`` is
     ``x[c*t + r, j] != 0``."""

@@ -7,7 +7,9 @@ includes no PyTorch header builds in seconds, where a
 ``torch.utils.cpp_extension`` build takes minutes. Libraries land in
 ``build/torch_ext/`` at the repository root, named by a hash of the
 source (with the local headers it includes) and flags, so an edited
-source is rebuilt. A failed build raises with the compiler's output.
+source is rebuilt. A failed build raises :class:`KernelError` with the
+compiler's output, and so does a failed launch: no caller catches it to
+take a kernel's plain version instead.
 """
 
 from __future__ import annotations
@@ -31,6 +33,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: (``rowbm::kMaxWords`` words of 32)
 ROW_BITMAP_MAX_TILE_COLS = ((232448 - 4096) // 8) * 32
 
+class KernelError(RuntimeError):
+    """A hand kernel did not build (no ``nvcc``, or ``nvcc`` failed) or did
+    not launch (the launcher returned a CUDA error)."""
+
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: compiler output (``ptxas -v``: registers, shared memory, spills) of each
 #: library built by this process, by source stem
@@ -44,7 +51,7 @@ def find_nvcc() -> str:
     for c in candidates:
         if c and Path(c).is_file():
             return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+    raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
                        "the b2sr_cuda kernels are built from source at "
                        "first use")
 
@@ -67,7 +74,7 @@ def load_library(source: Path) -> ctypes.CDLL:
         proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                                str(source)], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {source} "
+            raise KernelError(f"nvcc failed to build {source} "
                                f"(exit {proc.returncode}):\n{proc.stdout}"
                                f"{proc.stderr}")
         BUILD_LOG[source.stem] = proc.stdout + proc.stderr
@@ -104,7 +111,7 @@ def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
     """Raise if the launcher returned a CUDA error (``cudaGetLastError``)."""
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
+        raise KernelError(f"{name}: CUDA launch failed with error {err} "
                            f"({msg})")
 
 

@@ -33,6 +33,7 @@ from repro_torch.core.words import WORD
 from repro_torch.kernels import common
 from repro_torch.kernels.items import WorkItems, check_items, work_items
 from repro_torch.kernels.spmm import ref
+from repro_torch.obs.cost import counted, nbytes
 
 SOURCE = Path(__file__).with_name("spmm.cu")
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
@@ -85,6 +86,13 @@ def _check_aligned(m: B2SR) -> None:
         raise ValueError("bit_tiles must be 16-byte aligned (vector loads)")
 
 
+def _a_bytes(m: B2SR) -> int:
+    return nbytes(m.tile_row_ptr, m.tile_col_idx, m.bit_tiles)
+
+
+@counted(lambda out, m, f, mask=None, **kw: (
+    _a_bytes(m) + nbytes(f, mask, out),
+    2 * m.bit_tiles.numel() * f.shape[2]))   # AND, OR per word and column
 def spmm_bbb(m: B2SR, f: torch.Tensor, mask: Optional[torch.Tensor] = None,
              *, complement: bool = True,
              items: Optional[WorkItems] = None) -> torch.Tensor:
@@ -123,6 +131,8 @@ def spmm_bbb(m: B2SR, f: torch.Tensor, mask: Optional[torch.Tensor] = None,
     return out
 
 
+@counted(lambda out, m, x, **kw: (
+    _a_bytes(m) + nbytes(x, out), 2 * m.nnz * x.shape[1]))
 def spmm_dense(m: B2SR, x: torch.Tensor, *,
                items: Optional[WorkItems] = None) -> torch.Tensor:
     """``Y = A · X`` with A's bits as 0/1: ``x`` float32 ``[n_cols, D]``
@@ -170,6 +180,9 @@ def _spmm_dense(m: B2SR, x: torch.Tensor, items: Optional[WorkItems],
     return y
 
 
+@counted(lambda out, m, xw, *args, **kw: (
+    _a_bytes(m) + nbytes(xw, out),
+    3 * m.bit_tiles.numel() * xw.shape[1]))  # AND, popcount, add
 def spmm_bbf(m: B2SR, xw: torch.Tensor, out_dtype=torch.float32, *,
              items: Optional[WorkItems] = None) -> torch.Tensor:
     """BitGNN aggregation ``Y[r, j] = Σ popcount(A_word_r & xw[col, j])``

@@ -1,0 +1,242 @@
+"""Kernel cost accounting: estimated FLOPs/bytes attached to cached plans.
+
+Bit-GraphBLAS §VI attributes its wins kernel by kernel; to do that online
+the serving stack needs to know, per cached plan, how much arithmetic and
+memory traffic one launch represents — then the launch-latency histograms
+in the metrics registry turn into achieved FLOP/s and bytes/s per (op,
+backend, tile_dim), comparable against the roofline.
+
+The reference reads these numbers off XLA's optimized HLO. PyTorch has no
+compiled program to read, so here a plan's first call, with cost
+accounting on, is run once more under counting (:func:`analyze_plan`)
+and the count is of what ran. The rule is HLO's "bytes accessed": every
+operation adds the bytes of its operands and of its outputs.
+
+  - **aten operations** are counted through a ``TorchDispatchMode``: the
+    bytes of every tensor among an operation's arguments and results.
+    Operations that only make a view (``view``, ``slice``, ``expand``,
+    ...) move nothing and count nothing. FLOPs come from
+    ``torch.utils.flop_counter.FlopCounterMode`` (matrix products).
+  - **hand kernels** launch through ``ctypes``, which neither mode sees,
+    so each wrapper that a plan reaches (``spmm_bbb``, ``spmm_dense``,
+    ``spmm_bbf``, ``pack_rows``) counts itself (:func:`counted`): the
+    bytes of the operands it is handed (the B2SR's three arrays, the
+    dense or packed right-hand side, the mask) and of the output it
+    returns, and its operations by a rule stated beside the wrapper. A
+    kernel gets its rule when it first enters a plan. The wrapper's own
+    torch calls
+    and, on a CPU tensor, its plain version run with both modes
+    suspended, so a plain version counts exactly what the kernel counts.
+    Work items and scratch are the kernel's business and do not count.
+  - ``wire_bytes`` is 0: the port has no collectives until its
+    multi-GPU slice.
+
+The report lands on ``Plan.cost`` and as ``plan_flops`` /
+``plan_hbm_bytes`` / ``plan_wire_bytes`` gauges in the registry; its
+``kernels`` entry lists each hand kernel's launches, bytes and operations
+(a ``b2sr_cuda`` plan whose kernels count nothing is a fault).
+
+Cost accounting is **off by default** (``set_cost_accounting(True)`` to
+enable): the counted run is a second run of the plan's first call, fine
+for benchmarks and analysis, not something serving should pay
+implicitly. With it off, a plan's first call costs what it did before
+this module existed; ``counted`` wrappers pay one list lookup a call.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+from typing import Callable, Dict, List, Optional
+
+from repro_torch.obs import metrics as _metrics
+
+__all__ = ["set_cost_accounting", "cost_accounting_enabled", "analyze_plan",
+           "record_plan_cost", "roofline_table", "counted", "nbytes",
+           "COST_LABELS"]
+
+_COST_ENABLED: List[bool] = [False]
+
+#: Labels shared by the plan cost gauges and the launch latency histogram —
+#: the join key of :func:`roofline_table`.
+COST_LABELS = ("op", "backend", "tile_dim")
+
+#: The count in progress (one :class:`_Count` while a plan is analysed).
+_ACTIVE: List[Optional["_Count"]] = [None]
+
+
+def set_cost_accounting(flag: bool) -> bool:
+    """Enable/disable per-plan cost counting; returns the previous value."""
+    prev = _COST_ENABLED[0]
+    _COST_ENABLED[0] = bool(flag)
+    return prev
+
+
+def cost_accounting_enabled() -> bool:
+    return _COST_ENABLED[0] and _metrics.enabled()
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors given (``None`` entries skipped)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+class _Count:
+    """What one counted run moved: aten bytes and FLOPs, and per hand
+    kernel its launches, bytes and operations."""
+
+    def __init__(self):
+        self.aten_bytes = 0
+        self.kernels: Dict[str, Dict[str, int]] = {}
+
+    def kernel(self, name: str, n_bytes: int, ops: int) -> None:
+        k = self.kernels.setdefault(name, {"launches": 0, "bytes": 0,
+                                           "ops": 0})
+        k["launches"] += 1
+        k["bytes"] += int(n_bytes)
+        k["ops"] += int(ops)
+
+
+def _byte_mode(count: _Count):
+    """A ``TorchDispatchMode`` adding each aten operation's operand and
+    result bytes to ``count`` (made here, so importing this module does
+    not touch torch's private dispatch API)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    def tensor_bytes(tree) -> int:
+        return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+                   if isinstance(x, torch.Tensor))
+
+    class _ByteMode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            if not func.is_view:
+                count.aten_bytes += tensor_bytes((args, kwargs))
+                count.aten_bytes += tensor_bytes(out)
+            return out
+
+    return _ByteMode()
+
+
+def counted(io: Callable) -> Callable:
+    """Decorator of a hand-kernel wrapper: while a plan is analysed, the
+    call adds ``io(out, *args, **kw) -> (bytes, ops)`` under the wrapper's
+    name, and runs with the dispatch modes suspended (its torch calls and
+    its plain version are the kernel's, counted by ``io``). Otherwise the
+    wrapper runs as it is."""
+
+    def deco(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def wrapper(*args, **kw):
+            count = _ACTIVE[0]
+            if count is None:
+                return fn(*args, **kw)
+            from torch.utils._python_dispatch import _disable_current_modes
+            with _disable_current_modes():
+                out = fn(*args, **kw)
+                n_bytes, ops = io(out, *args, **kw)
+            count.kernel(fn.__name__, n_bytes, ops)
+            return out
+
+        return wrapper
+
+    return deco
+
+
+def analyze_plan(fn, args, kwargs) -> dict:
+    """Count one run of ``fn(*args, **kwargs)`` (a plan's loop).
+
+    Returns ``{"flops", "hbm_bytes", "wire_bytes", "compile_s", "aten_bytes",
+    "kernels"}``: ``hbm_bytes`` is the aten bytes plus every hand kernel's;
+    ``flops`` FlopCounterMode's count plus the kernels' operations;
+    ``compile_s`` the counted run's wall time (the reference's AOT compile
+    time stands in that slot). An error of the run is the call's error and
+    propagates.
+    """
+    from torch.utils.flop_counter import FlopCounterMode
+
+    count = _Count()
+    flop_mode = FlopCounterMode(display=False)
+    t0 = time.perf_counter()
+    _ACTIVE[0] = count
+    try:
+        with flop_mode, _byte_mode(count):
+            fn(*args, **kwargs)
+    finally:
+        _ACTIVE[0] = None
+    elapsed = time.perf_counter() - t0
+    kernel_bytes = sum(k["bytes"] for k in count.kernels.values())
+    kernel_ops = sum(k["ops"] for k in count.kernels.values())
+    return {"flops": float(flop_mode.get_total_flops() + kernel_ops),
+            "hbm_bytes": float(count.aten_bytes + kernel_bytes),
+            "wire_bytes": 0.0, "compile_s": elapsed,
+            "aten_bytes": float(count.aten_bytes),
+            "kernels": count.kernels}
+
+
+def record_plan_cost(cost: dict, op: str, backend: str,
+                     tile_dim: int,
+                     registry: Optional[_metrics.MetricsRegistry] = None
+                     ) -> None:
+    """Publish one plan's cost estimate into the registry gauges."""
+    if not _metrics.enabled():
+        return
+    reg = registry or _metrics.get_registry()
+    labels = {"op": op, "backend": backend, "tile_dim": tile_dim}
+    reg.gauge("plan_flops", "estimated FLOPs per launch (counted run)",
+              COST_LABELS).set(cost["flops"], **labels)
+    reg.gauge("plan_hbm_bytes", "estimated HBM bytes per launch",
+              COST_LABELS).set(cost["hbm_bytes"], **labels)
+    reg.gauge("plan_wire_bytes", "estimated collective bytes per launch",
+              COST_LABELS).set(cost["wire_bytes"], **labels)
+    reg.histogram("plan_compile_s", "counted-run time of cached plans",
+                  COST_LABELS).observe(cost.get("compile_s", 0.0), **labels)
+
+
+def roofline_table(registry: Optional[_metrics.MetricsRegistry] = None
+                   ) -> List[dict]:
+    """Join plan cost gauges with launch latency histograms: achieved rates.
+
+    One row per (op, backend, tile_dim) that has both a cost estimate and
+    observed launches: mean launch latency, estimated flops/bytes, and the
+    achieved FLOP/s and HBM bytes/s those imply — the online version of
+    the dry-run roofline fraction.
+    """
+    reg = registry or _metrics.get_registry()
+    flops_g = reg.get("plan_flops")
+    bytes_g = reg.get("plan_hbm_bytes")
+    lat_h = reg.get("launch_latency_s")
+    if flops_g is None or lat_h is None:
+        return []
+    # aggregate latency over the extra labels (bucketed/sharded) down to
+    # the cost join key
+    lat_by_key: Dict[tuple, List[float]] = {}
+    for key, s in lat_h._series.items():
+        labels = dict(zip(lat_h.labelnames, key))
+        jk = tuple(labels.get(k, "") for k in COST_LABELS)
+        lat_by_key.setdefault(jk, [0.0, 0])
+        lat_by_key[jk][0] += s.sum
+        lat_by_key[jk][1] += s.count
+    rows: List[dict] = []
+    for key in sorted(flops_g._series):
+        labels = dict(zip(COST_LABELS, key))
+        total_s, n = lat_by_key.get(key, (0.0, 0))
+        if not n:
+            continue
+        mean_s = total_s / n
+        flops = float(flops_g._series[key])
+        hbm = float(bytes_g._series.get(key, 0.0)) if bytes_g else 0.0
+        rows.append({
+            **labels,
+            "n_launches": n,
+            "mean_latency_s": mean_s,
+            "est_flops": flops,
+            "est_hbm_bytes": hbm,
+            "achieved_flops_s": flops / mean_s if mean_s else None,
+            "achieved_hbm_bytes_s": hbm / mean_s if mean_s else None,
+        })
+    return rows
