@@ -13,9 +13,10 @@ SpGEMM, k-hop reachability, the multi-source engine (msbfs, mskhop,
 ms_sssp, batched PPR, the query batcher), the bit-packing entry points,
 BitGNN inference (``gnn_infer`` at gcn-cora's widths), the serving front
 end (``GraphQueryServer`` with its telemetry, warm restart and injected
-faults) and GCN training (``train_steps.gnn_train_step`` and the trainer
-at the same widths) through the port's entry points. Each phase prints one JSON line; a
-failed phase exits non-zero.
+faults), GCN training (``train_steps.gnn_train_step`` and the trainer
+at the same widths) and the sharded rows over a mesh of slots on the
+card (``GraphMatrix.shard``) through the port's entry points. Each phase
+prints one JSON line; a failed phase exits non-zero.
 
   1. kernels: each kernel against its plain PyTorch version
      (``kernels/bmv/ref.py``) on the card, at tile dims 4/8/16/32 on small
@@ -185,7 +186,21 @@ failed phase exits non-zero.
      row, one cuSPARSE SpMM of the float CSR of Aᵀ by [n, 16] and its
      bound. Prints the step walls (median of steps 2-4) and the peak
      device memory.
- 19. timing: per kernel of phases 2-6 the median time of one launch (CUDA
+ 19. shard: the sharded rows (``GraphMatrix.shard``) on the same graph
+     and on the spgemm phase's scale-16 graph, over a mesh of 4 slots
+     that all name the one card and a mesh of 1 slot, each with
+     ``combine`` "gather" and "exchange": BFS push/pull/auto from the 4
+     sources, SSSP, PageRank, PPR, CC, the count mxv, msbfs and mskhop
+     of the 64 engine sources, ``triangle_count``, A² at scale 16,
+     ``signed_aggregate`` at D = 16 and, at gcn-cora's widths, the GCN
+     forward and one ``gnn_train_step`` with ``shardmap_agg_axes``. Every
+     result equals the unsharded ``b2sr_cuda`` graph's bit for bit;
+     every kernel launches on every sharding (counts set to 0 before,
+     read after). Prints the walls beside the unsharded ones, the words
+     each combine moves, the partitions' balance and edge cut, the
+     device time outside the hand kernels (torch.profiler), the peak
+     device memory and the card's name and power limit.
+ 20. timing: per kernel of phases 2-6 the median time of one launch (CUDA
      events) on the main path's inputs (each iteration of one run),
      beside its plain version, the ``csr`` row, one cuSPARSE SpMV call
      (``torch.mv`` on the float CSR) where that computes the same
@@ -199,7 +214,7 @@ failed phase exits non-zero.
      version). Pull runs with the
      items and the lane occupancy the registry keeps. Phases 7-8 time
      their own kernels the same way.
- 20. profile: one run per algorithm and BFS direction, triangle counting,
+ 21. profile: one run per algorithm and BFS direction, triangle counting,
      k-hop, msbfs (auto), batched PPR, ``gnn_infer`` (bit and float) and
      one GCN train step on ``b2sr_cuda`` under ``torch.profiler``: device
      time by kernel and the card's idle share.
@@ -340,6 +355,15 @@ SERVE_KHOP_K = 2
 SERVE_PPR_ITERS = 10
 SERVE_RESTARTS = 5             # cold / warm first-batch samples, in turns
 SERVE_FAULT_HOPS = 2           # serve (d): hops of the scripted bfs queries
+SHARD_SLOTS = 4                # shard: slots of the mesh on the one card
+#: shard: (label, slots, combine) of each sharding
+SHARD_CONFIGS = (("p4/gather", SHARD_SLOTS, "gather"),
+                 ("p4/exchange", SHARD_SLOTS, "exchange"),
+                 ("p1/gather", 1, "gather"), ("p1/exchange", 1, "exchange"))
+#: shard: the kernels the sharded rows launch per shard
+SHARD_KERNELS = ("bmv_bbb_push", "bmv_bbb_pull", "bmv_bff", "bmv_bbf",
+                 "bmm_tc", "spgemm_bbb", "spmm_bbb", "spmm_dense",
+                 "spmm_bbf", "pack_rows")
 
 
 def emit(obj) -> None:
@@ -3186,6 +3210,285 @@ def phase_train(g, adj, deg, x):
         lambda: step(p, o, batches["b2sr_cuda"]))}
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def same_bits(a, b) -> bool:
+    """Results equal bit for bit: tensors by their bytes (float32 as
+    int32, so -0.0 and NaN payloads count), anything else by ``==``."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False
+        if a.dtype == torch.float32:
+            return torch.equal(a.view(torch.int32), b.view(torch.int32))
+        return torch.equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_bits(x, y)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+def max_diff(a, b) -> float:
+    """The largest absolute difference of the floating tensors in two
+    results (0 where none differs)."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        if a.is_floating_point() and a.shape == b.shape:
+            d = (a.double() - b.double()).abs()
+            return float(d[torch.isfinite(d)].max()) if d.numel() else 0.0
+        return 0.0 if same_bits(a, b) else float("inf")
+    if isinstance(a, (tuple, list)):
+        return max([max_diff(x, y) for x, y in zip(a, b)] + [0.0])
+    return 0.0 if a == b else float("inf")
+
+
+def shard_cases(G, G16, sources, srcs, bv, h16, rowsum, gcn):
+    """The shard phase's runs on ``G`` (R-MAT scale 21) and ``G16``
+    (scale 16), each a function returning its results."""
+    from repro_torch.algorithms import (bfs, connected_components,
+                                        pagerank, ppr, sssp, triangle_count)
+    from repro_torch.core.semiring import ARITHMETIC
+    from repro_torch.engine import msbfs, mskhop
+    from repro_torch.gnn_bit import layers
+
+    def bfs_all(d):
+        return tuple((r.levels, r.n_iterations, tuple(r.directions))
+                     for r in (bfs(G, s, direction=d) for s in sources))
+
+    infer, step, params, opt0, batch = gcn
+
+    def gcn_step():
+        new, _, m = step(params, opt0, batch(G))
+        return tuple(new[k] for k in sorted(new)) + (m["loss"],)
+
+    cases = {f"bfs/{d}": (lambda d=d: bfs_all(d)) for d in DIRECTIONS}
+    cases.update({
+        "sssp": lambda: (sssp(G, sources[0]).distances,),
+        "pagerank": lambda: (pagerank(G).ranks,),
+        "ppr": lambda: (ppr(G, sources[0]).ranks,),
+        "cc": lambda: (connected_components(G, direction="auto").labels,),
+        "count_mxv": lambda: (G.mxv(bv, ARITHMETIC),),
+        "msbfs": lambda: (msbfs(G, srcs, direction="auto").levels,),
+        "mskhop": lambda: (mskhop(G, srcs, MSKHOP_K),),
+        "tc": lambda: (triangle_count(G),),
+        "a2/scale16": lambda: (lambda m: (m.tile_row_ptr, m.tile_col_idx,
+                                          m.bit_tiles))(G16.mxm(G16).b2sr),
+        "bitgnn_aggregate": lambda: (layers.signed_aggregate(G, h16,
+                                                             rowsum),),
+        "gcn/forward": lambda: (infer(params, batch(G)),),
+        "gcn/step": gcn_step})
+    return cases
+
+
+def copy_profile(fn):
+    """Device ms of one call of ``fn`` (torch.profiler): in the hand
+    kernels, and in everything else (the combines' copies, index_select,
+    index_copy_ and concatenation, and torch's own elementwise work), with
+    the five largest of the latter; None where the profile recorded no
+    device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    hand = ("bbb_walk", "bmv_", "bmm_tc", "spgemm", "spmm_", "pack_rows",
+            "window_kernel", "occupancy_kernel", "frontier_columns")
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    kern, other = 0.0, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+        if any(h in name for h in hand):
+            kern += ms
+        else:
+            other[name[:80]] = other.get(name[:80], 0.0) + ms
+    if not kern and not other:
+        return None
+    return {"hand_kernels_ms": kern, "other_ms": sum(other.values()),
+            "top_other": sorted(other.items(), key=lambda kv: -kv[1])[:5]}
+
+
+def phase_shard(g, deg, sources, srcs, x):
+    """The sharded rows (``GraphMatrix.shard``) on the card.
+
+    R-MAT scale 21 (t = 32, the bfs phase's graph) and scale 16 (the
+    spgemm phase's), sharded over a mesh of SHARD_SLOTS slots that all
+    name the one card and over a mesh of 1 slot, with ``combine``
+    "gather" and "exchange" (on 1 slot the exchange falls to gather, as
+    in the reference: no plan). On each sharding, and on the unsharded
+    ``b2sr_cuda`` graph: BFS push, pull and auto from the bfs phase's 4
+    sources, SSSP, PageRank and PPR (from the first source), CC auto, the
+    count mxv on a 5% frontier, msbfs auto and mskhop (k = 2) of the 64
+    engine sources, ``triangle_count``, A² at scale 16 (``mxm graph``),
+    ``gnn_bit.layers.signed_aggregate`` of a [n, 16] float (``pack_rows``
+    and ``spmm_bbf``), and at gcn-cora's widths (the gnn phase's
+    features) the GCN forward and one ``gnn_train_step`` with
+    ``shardmap_agg_axes=("data",)`` (``spmm_dense`` forward, and its Aᵀ
+    backward over the transposed partition). Every result must equal the
+    unsharded graph's bit for bit (float rows included: a block's work
+    items cut each row as the whole graph's do). Every kernel launches on
+    every sharding: counts set to 0 before its runs, read after. The
+    unsharded graph's and each sharding's runs go twice; the second pass
+    is timed. Prints the walls
+    beside the unsharded graph's, the words each combine moves per call
+    (one push step, one D = 16 SpMM) and per pass, the partitions'
+    balance and edge cut, the device time outside the hand kernels (the
+    copies) of PageRank, msbfs and the GCN forward (torch.profiler), the
+    shard() wall, the peak device memory and the phase's wall, beside the
+    card's name and power limit. Returns the launches per kernel over the shardings.
+    """
+    import torch
+    from repro_torch.configs import gcn_cora
+    from repro_torch.core.graphblas import GraphMatrix
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.core.operands import BitVector
+    from repro_torch.data.graphs import rmat_graph
+    from repro_torch.models.gnn.common import GraphBatch
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_steps
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    n = g.n_rows
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    bv = BitVector.pack(torch.rand(n, generator=gen, device=DEVICE) < 0.05,
+                        g.tile_dim)
+    h16 = torch.randn((n, 16), generator=gen, device=DEVICE)
+    rowsum = torch.as_tensor(deg, dtype=torch.float32, device=DEVICE)
+    n16 = 1 << SPGEMM_SCALE
+    r16, c16 = rmat_graph(n16, avg_degree=2 * EDGEFACTOR, seed=SEED)
+    g16 = GraphMatrix.from_coo(r16, c16, n16, n16, TILE_DIM,
+                               backend="b2sr_cuda", device=DEVICE)
+
+    # the GCN: the train phase's batch and weights (its seed), gcn-cora
+    cfg = gcn_cora.CONFIG
+    cfg_sharded = dataclasses.replace(cfg, shardmap_agg_axes=("data",))
+    tgen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    labels = torch.randint(0, cfg.n_classes, (n,), generator=tgen,
+                           device=DEVICE)
+    train_mask = torch.rand(n, generator=tgen, device=DEVICE) < TRAIN_MASK
+    dims = ([cfg.d_in] + [cfg.d_hidden] * (cfg.n_layers - 1)
+            + [cfg.n_classes])
+    params = {}
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        params[f"layers.{i}.weight"] = (torch.randn(
+            (b, a), generator=tgen, device=DEVICE) * (2.0 / (a + b)) ** 0.5)
+        params[f"layers.{i}.bias"] = 0.1 * torch.randn(
+            b, generator=tgen, device=DEVICE)
+    none = torch.zeros(0, dtype=torch.int64, device=DEVICE)
+    degrees = torch.as_tensor(deg + 1.0, dtype=torch.float32, device=DEVICE)
+
+    def batch(G):
+        return GraphBatch(node_feat=x, senders=none, receivers=none,
+                          edge_mask=none.bool(), graph=G, degrees=degrees,
+                          labels=labels, train_mask=train_mask)
+
+    ocfg = opt_mod.OptimizerConfig(name="adamw", lr=TRAIN_LR,
+                                   warmup_steps=0)
+    opt0 = opt_mod.init(ocfg, params)
+
+    def gcn(c):
+        return (train_steps.gnn_infer_step(c),
+                train_steps.gnn_train_step(c, ocfg), params, opt0, batch)
+
+    problems = []
+    base = shard_cases(g, g16, sources, srcs, bv, h16, rowsum, gcn(cfg))
+    want, walls = {}, {}
+    for name, fn in base.items():
+        want[name] = fn()
+    for name, fn in base.items():               # the timed pass
+        _, walls[name, "unsharded"] = sync_time(fn)
+    profiles = {"unsharded": {k: copy_profile(base[k]) for k in
+                              ("pagerank", "msbfs", "gcn/forward")}}
+    del base
+    torch.cuda.empty_cache()
+
+    prev_registry = obs_metrics.get_registry()
+    totals = dict.fromkeys(SHARD_KERNELS, 0)
+    configs = {}
+    try:
+        for label, slots, combine in SHARD_CONFIGS:
+            mesh = make_mesh((slots,), ("data",), [DEVICE] * slots)
+            (G, G16), shard_s = sync_time(lambda: (
+                g.shard(mesh, combine=combine),
+                g16.shard(mesh, combine=combine)))
+            cases = shard_cases(G, G16, sources, srcs, bv, h16, rowsum,
+                                gcn(cfg_sharded))
+            reset_launches(SHARD_KERNELS)
+            got = {}
+            for name, fn in cases.items():
+                got[name] = fn()
+                if not same_bits(got[name], want[name]):
+                    problems.append(f"{label} {name} != unsharded (max "
+                                    f"diff {max_diff(got[name], want[name])})")
+            launches = read_launches("shard", SHARD_KERNELS)
+            del got
+            obs_metrics.set_registry(obs_metrics.MetricsRegistry())
+            for name, fn in cases.items():          # the timed pass
+                _, walls[name, label] = sync_time(fn)
+            per_pass = words(obs_metrics.get_registry())
+            per_call = {}
+            for what, fn in (("mxv_bitvec", lambda: G.mxv(bv)),
+                             ("mxm_dense_d16", lambda: G.mxm(h16))):
+                obs_metrics.set_registry(obs_metrics.MetricsRegistry())
+                fn()
+                per_call[what] = words(obs_metrics.get_registry())
+            for k in SHARD_KERNELS:         # both passes and the calls
+                totals[k] += wrapper(k).launches
+            configs[label] = {
+                "slots": slots, "combine": combine, "shard_s": shard_s,
+                "exchange_plan": G.xplan is not None,
+                "row_starts": list(G.partitioned.row_starts),
+                "balance": {"forward": G.partitioned.balance(),
+                            "transpose": G.partitioned_t.balance()},
+                "edge_cut": {"forward": G.partitioned.edge_cut(),
+                             "transpose": G.partitioned_t.edge_cut()},
+                "launches_first_pass": launches,
+                "words_per_call": per_call, "words_per_pass": per_pass}
+            if slots > 1:
+                configs[label]["profile"] = {
+                    k: copy_profile(cases[k])
+                    for k in ("pagerank", "msbfs", "gcn/forward")}
+            del G, G16, cases
+            torch.cuda.empty_cache()
+    finally:
+        obs_metrics.set_registry(prev_registry)
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "shard", "ok": not problems, "problems": problems[:10],
+          "card": card, "scale": int(np.log2(n)), "tile_dim": g.tile_dim,
+          "configs": configs, "profile_unsharded": profiles["unsharded"],
+          "walls_s": {name: {lbl: walls[name, lbl] for lbl in
+                             ["unsharded"] + [c[0] for c in SHARD_CONFIGS]}
+                      for name in want},
+          "peak_device_bytes": peak,
+          "phase_s": time.perf_counter() - t_phase})
+    if problems:
+        fail("shard", "; ".join(problems[:5]))
+    return totals
+
+
+def words(reg) -> dict:
+    """The comm counters of a registry: elements by counter and (op,
+    backend, shards)."""
+    out = {}
+    for c in ("gather_words_total", "exchange_words_total"):
+        m = reg.get(c)
+        if m is not None:
+            out[c] = {",".join(k): v for k, v in m._series.items()}
+    return out
+
+
 def phase_profile(g, source, road, srcs, extra_runs):
     """Device busy time of one run per algorithm and BFS direction
     (torch.profiler, CUPTI): kernel time by name, and the share of the
@@ -3324,6 +3627,15 @@ def main() -> int:
     train_row, train_launches, train_runs = phase_train(g, adj, deg,
                                                         features)
     dense_launches += train_launches
+    shard_ls = phase_shard(g, deg, sources, srcs, features)
+    bbb_launches += shard_ls["spmm_bbb"]
+    dense_launches += shard_ls["spmm_dense"]
+    for k in ("spmm_bbf", "pack_rows"):
+        ls[k] += shard_ls[k]
+    for k in ("bmv_bbb_push", "bmv_bbb_pull", "bmv_bff", "bmv_bbf"):
+        launches[k] += shard_ls[k]
+    tc_row["launches"] += shard_ls["bmm_tc"]
+    spgemm_row["launches"] += shard_ls["spgemm_bbb"]
     for row, n_launches in zip(spmm_rows, (bbb_launches, dense_launches)):
         row["launches"] = n_launches
     spmm_rows[1].update(train_backward=train_row,
@@ -3346,10 +3658,7 @@ def main() -> int:
     table.sort(key=lambda r: order.index(r["name"]))
     phase_profile(g, sources[0], road, srcs, {**gnn_runs, **train_runs})
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi, flush=True)
+    print(card_line(), flush=True)
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -23,3 +23,7 @@ class GNNConfig:
     # the model family ``training.train_steps`` builds a step for; the
     # port has the GCN only (the others: ROADMAP Queue 1 item 10)
     family: str = "gcn"
+    # mesh axes the B2SR aggregation is row-sharded over
+    # (``gnn_bit.layers.aggregate(axes=...)``, the sharded registry rows);
+    # () aggregates on one device
+    shardmap_agg_axes: tuple = ()

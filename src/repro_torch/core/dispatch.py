@@ -21,7 +21,9 @@ keyed by the full Table II/III coordinate (the reference's key):
             ``repro_torch.kernels.*.ops``) | "csr" (float CSR baseline)
   bucketed  whether the SELL-style row-bucketed path is active
   masked    whether a §V output mask is applied
-  sharded   always False until the multi-GPU slice
+  sharded   whether the graph is row-partitioned over a mesh
+            (``GraphMatrix.shard``): the rows of
+            ``repro_torch.core.ops_sharded``, for the b2sr backends only
 
 Implementations have the signature ``fn(g, rhs, call)`` and return the
 raw result: packed words, dense values, a B2SR (boolean SpGEMM) or an
@@ -77,6 +79,9 @@ _BACKEND_MODULES: Dict[str, Tuple[str, ...]] = {
                   "repro_torch.kernels.spmm.ops"),
     "csr": ("repro_torch.core.csr_backend",),
 }
+#: the sharded rows of the b2sr backends, loaded with them
+_SHARDED_MODULE = "repro_torch.core.ops_sharded"
+
 BACKENDS = tuple(_BACKEND_MODULES)
 _LOADED: set = set()
 
@@ -225,8 +230,12 @@ def _iter_flags(v: Union[bool, Iterable[bool]]) -> Tuple[bool, ...]:
 
 def register(op: str, rhs: str, out: str, backend: str,
              bucketed: Union[bool, Iterable[bool]] = BOTH,
-             masked: Union[bool, Iterable[bool]] = BOTH):
-    """Decorator: register ``fn`` for every (bucketed, masked) combination."""
+             masked: Union[bool, Iterable[bool]] = BOTH,
+             sharded: Union[bool, Iterable[bool]] = False):
+    """Decorator: register ``fn`` for every (bucketed, masked, sharded)
+    combination. ``sharded`` defaults to False: single-device rows never
+    see the flag; the sharded twins in ``repro_torch.core.ops_sharded``
+    register with ``sharded=True``."""
     if op not in OPS:
         raise ValueError(f"unknown op {op!r}; expected one of {OPS}")
     if rhs not in RHS_KINDS:
@@ -237,10 +246,12 @@ def register(op: str, rhs: str, out: str, backend: str,
     def deco(fn: Callable) -> Callable:
         for b in _iter_flags(bucketed):
             for m in _iter_flags(masked):
-                key: Key = (op, rhs, out, backend, b, m, False)
-                if key in _REGISTRY:
-                    raise ValueError(f"duplicate registration for {key}")
-                _REGISTRY[key] = fn
+                for s in _iter_flags(sharded):
+                    key: Key = (op, rhs, out, backend, b, m, s)
+                    if key in _REGISTRY:
+                        raise ValueError(
+                            f"duplicate registration for {key}")
+                    _REGISTRY[key] = fn
         return fn
 
     return deco
@@ -251,6 +262,8 @@ def _ensure_backend(backend: str) -> None:
         return
     for mod in _BACKEND_MODULES.get(backend, ()):
         importlib.import_module(mod)
+    if backend != "csr":
+        importlib.import_module(_SHARDED_MODULE)
     _LOADED.add(backend)
 
 
@@ -268,10 +281,12 @@ def resolve(op: str, rhs: str, out: str, backend: str, bucketed: bool,
     if hooked and scope is not None:
         scope.seen.add(key)
     if fn is None:
+        hint = (" (sharded rows exist only for the b2sr backends — "
+                "call GraphMatrix.unshard() for this op)" if sharded else "")
         err = NotImplementedError(
             f"no kernel registered for op={op} rhs={rhs} out={out} "
             f"backend={backend} bucketed={bucketed} masked={masked} "
-            f"sharded={sharded}; registered rows: "
+            f"sharded={sharded}{hint}; registered rows: "
             f"{sorted(k for k in _REGISTRY if k[0] == op)}")
         if hooked:
             _observe(key, t0, err)
@@ -326,6 +341,18 @@ def check_semiring(op: str, rhs: str, semiring: Semiring) -> None:
         raise NotImplementedError(
             f"{op} over a {rhs} operand supports only the {allowed} "
             f"semiring(s), got {semiring.name!r}")
+
+
+def reject_sharded_row_chunk(op: str, row_chunk) -> None:
+    """Raise on ``row_chunk`` with a sharded graph *before* any operand
+    staging: the row partition already bounds each shard's memory, so the
+    sharded rows do not chunk. ``GraphMatrix.mxv``/``mxm``/``tri_count``
+    call this first, so the error is immediate and names the op."""
+    if row_chunk is not None:
+        raise ValueError(
+            f"{op}: row_chunk is not supported on the sharded path — the "
+            "row partition already bounds per-device memory (unshard() "
+            "first if chunked evaluation is required)")
 
 
 def apply_output_mask(y: torch.Tensor, mask: torch.Tensor, complement: bool,

@@ -23,6 +23,12 @@ view). On skewed graphs the single-max ELL is far larger than the graph;
 the CUDA kernels and the CSR baseline never build it. A matrix wrapped
 from a B2SR (``from_b2sr``, every boolean ``mxm`` result) builds its CSR
 twin the same way, from its tiles, on the first row that reads it.
+
+``shard(mesh)`` row-partitions both orientations over a
+:class:`~repro_torch.core.mesh.ShardMesh` (``core.partition``); every
+operation of the sharded graph then resolves to the sharded rows
+(``core.ops_sharded``), which launch each shard's kernel on its slot's
+device and return the global result, so no caller changes.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from repro_torch.core import b2sr as b2sr_mod
 from repro_torch.core import csr as csr_mod
 from repro_torch.core import descriptor as descriptor_mod
 from repro_torch.core import dispatch
+from repro_torch.core import partition as partition_mod
 from repro_torch.core.b2sr import (B2SR, B2SRBucketedEll, B2SREll,
                                    combine_tiles, pack_bitvector)
 from repro_torch.core.descriptor import _UNSET, Descriptor
@@ -106,6 +113,7 @@ class LowerTriangle:
         self._buckets: Optional[B2SRBucketedEll] = None
         #: what a backend's triangle row derives from L once and keeps
         self.cache: dict = {}
+        self._parts: dict = {}      # (n_shards, devices) -> L's partition
         if build_b2sr:
             self.b2sr
 
@@ -141,6 +149,17 @@ class LowerTriangle:
             self._buckets = b2sr_mod.to_bucketed(self.b2sr)
         return self._buckets
 
+    def partitioned(self, n_shards: int,
+                    devices: Optional[Sequence[torch.device]] = None
+                    ) -> "partition_mod.PartitionedB2SR":
+        """L row-partitioned for the sharded ``mxm_sum`` row, its blocks on
+        ``devices`` (memoized per shard count and devices)."""
+        key = (n_shards, None if devices is None else tuple(devices))
+        if key not in self._parts:
+            self._parts[key] = partition_mod.partition_rows(
+                self.b2sr, n_shards, with_buckets=False, devices=devices)
+        return self._parts[key]
+
 
 @dataclasses.dataclass
 class GraphMatrix:
@@ -158,6 +177,17 @@ class GraphMatrix:
     transposed_cache: Optional["GraphMatrix"] = None
     fingerprint_cache: Optional[str] = None
     tri_cache: Optional[LowerTriangle] = None
+    # scale-out state (``shard(mesh)``): the mesh and axes the graph is
+    # row-partitioned over, the partitions of the forward and transposed
+    # orientations, and the combine layout with its exchange plans; every
+    # op resolves to the sharded rows while ``partitioned`` is set
+    mesh: Optional[Any] = None
+    shard_axes: Optional[tuple] = None
+    partitioned: Optional["partition_mod.PartitionedB2SR"] = None
+    partitioned_t: Optional["partition_mod.PartitionedB2SR"] = None
+    comm: str = "gather"
+    xplan: Optional["partition_mod.ExchangePlan"] = None
+    xplan_t: Optional["partition_mod.ExchangePlan"] = None
 
     # -- constructors -------------------------------------------------------
     @staticmethod
@@ -207,6 +237,9 @@ class GraphMatrix:
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {backend!r}")
+        if backend == "csr" and self.sharded:
+            raise ValueError("the csr baseline has no sharded rows; call "
+                             "unshard() before with_backend('csr')")
         return dataclasses.replace(self, backend=backend,
                                    transposed_cache=None)
 
@@ -229,7 +262,10 @@ class GraphMatrix:
         gt = dataclasses.replace(self, fwd=self.bwd, bwd=self.fwd,
                                  n_rows=self.n_cols, n_cols=self.n_rows,
                                  degrees_cache=None, transposed_cache=self,
-                                 fingerprint_cache=None, tri_cache=None)
+                                 fingerprint_cache=None, tri_cache=None,
+                                 partitioned=self.partitioned_t,
+                                 partitioned_t=self.partitioned,
+                                 xplan=self.xplan_t, xplan_t=self.xplan)
         self.transposed_cache = gt
         return gt
 
@@ -258,6 +294,89 @@ class GraphMatrix:
     def _bucketed(self, row_chunk: Optional[int] = None) -> bool:
         """Whether this op dispatches to the bucketed path."""
         return self.use_buckets and row_chunk is None
+
+    # -- scale-out: row-partitioned execution over a mesh ---------------------
+    @property
+    def sharded(self) -> bool:
+        return self.partitioned is not None
+
+    def shard(self, mesh, axes: Optional[Sequence[str]] = None,
+              max_buckets: int = 8, combine: str = "gather",
+              balanced: bool = True) -> "GraphMatrix":
+        """Row-partition this graph over ``mesh`` (a
+        :class:`~repro_torch.core.mesh.ShardMesh`).
+
+        Returns a new ``GraphMatrix`` whose every operation, and so every
+        algorithm and engine query built on it, runs the sharded rows:
+        shard ``p`` owns a contiguous block of tile rows, split
+        nnz-balanced (``balanced=False``: equal blocks), on the ``p``-th
+        slot along ``axes`` (default: every axis; the other axes' first
+        slots). Results equal the unsharded graph's; no call site
+        changes.
+
+        ``combine`` picks the layout: ``"gather"`` copies the operand to
+        every shard and concatenates the blocks; ``"exchange"`` moves only
+        the column words each block touches and sends each output row to
+        its equal-block owner (one shard axis only). Rows without an
+        exchange layout (graph SpGEMM, ``tri_count``) gather. Both
+        orientations are partitioned, so ``transposed()`` stays sharded.
+        """
+        if self.backend == "csr":
+            raise ValueError("the csr baseline has no sharded rows; shard "
+                             "the b2sr or b2sr_cuda backend")
+        if combine not in ("gather", "exchange"):
+            raise ValueError(f"combine must be 'gather' or 'exchange', "
+                             f"got {combine!r}")
+        axes = tuple(axes) if axes is not None else tuple(mesh.axis_names)
+        if combine == "exchange" and len(axes) != 1:
+            raise ValueError("combine='exchange' runs a single-axis ring; "
+                             f"shard over exactly one mesh axis (got {axes})")
+        n_shards = partition_mod.shard_count(mesh, axes)
+        devices = partition_mod.shard_devices(mesh, axes)
+        kw = dict(with_buckets=self.use_buckets, max_buckets=max_buckets,
+                  balanced=balanced, devices=devices)
+        part = partition_mod.partition_rows(self.b2sr, n_shards, **kw)
+        part_t = (partition_mod.partition_rows(self.bwd.b2sr, n_shards, **kw)
+                  if self.bwd is not None else None)
+        xplan = xplan_t = None
+        if combine == "exchange":
+            xplan = partition_mod.build_exchange_plan(part)
+            if part_t is not None:
+                xplan_t = partition_mod.build_exchange_plan(part_t)
+        self._publish_partition_quality(part, part_t, n_shards)
+        return dataclasses.replace(
+            self, mesh=mesh, shard_axes=axes, partitioned=part,
+            partitioned_t=part_t, comm=combine, xplan=xplan,
+            xplan_t=xplan_t, transposed_cache=None)
+
+    @staticmethod
+    def _publish_partition_quality(part, part_t, n_shards: int) -> None:
+        """The partition-quality gauges: one point per ``shard()`` call,
+        labelled by orientation and shard count."""
+        from repro_torch.obs import metrics as obs_metrics
+        if not obs_metrics.enabled():
+            return
+        reg = obs_metrics.get_registry()
+        labels = ("orientation", "shards")
+        bal = reg.gauge("partition_balance",
+                        "max/mean per-shard tile load of the row partition",
+                        labels)
+        cut = reg.gauge("partition_edge_cut",
+                        "fraction of tiles whose column block lives on "
+                        "another shard", labels)
+        for orient, p in (("forward", part), ("transpose", part_t)):
+            if p is None:
+                continue
+            bal.set(p.balance(), orientation=orient, shards=n_shards)
+            cut.set(p.edge_cut(), orientation=orient, shards=n_shards)
+
+    def unshard(self) -> "GraphMatrix":
+        """Back to single-device execution (the partitions dropped; the
+        whole graph's arrays were never removed)."""
+        return dataclasses.replace(
+            self, mesh=None, shard_axes=None, partitioned=None,
+            partitioned_t=None, comm="gather", xplan=None, xplan_t=None,
+            transposed_cache=None)
 
     # -- packed-vector helpers ---------------------------------------------
     def pack(self, x: torch.Tensor) -> torch.Tensor:
@@ -292,6 +411,8 @@ class GraphMatrix:
         masked-out entries are taken from ``out``.
         """
         desc = descriptor_mod.merge_sugar(desc, mask, complement, row_chunk)
+        if self.sharded:
+            dispatch.reject_sharded_row_chunk("mxv", desc.row_chunk)
         if desc.transpose_a:
             return self.transposed().mxv(
                 x, semiring, desc.replace_with(transpose_a=False),
@@ -316,7 +437,7 @@ class GraphMatrix:
                                 call.mask is not None)
         impl = dispatch.resolve(op, kind, out_kind, self.backend,
                                 self._bucketed(desc.row_chunk),
-                                call.mask is not None)
+                                call.mask is not None, self.sharded)
         y = impl(self, x.words if kind == "bitvec" else x, call)
         if out_kind == "bin":
             y = BitVector.from_words(y, self.n_rows, self.tile_dim)
@@ -365,6 +486,8 @@ class GraphMatrix:
         its transpose.
         """
         desc = descriptor_mod.merge_sugar(desc, mask, complement, row_chunk)
+        if self.sharded:
+            dispatch.reject_sharded_row_chunk("mxm", desc.row_chunk)
         if desc.transpose_a:
             return self.transposed().mxm(
                 other, semiring, desc.replace_with(transpose_a=False),
@@ -404,7 +527,7 @@ class GraphMatrix:
                                 call.mask is not None)
         impl = dispatch.resolve(op, kind, out_kind, self.backend,
                                 self._bucketed(desc.row_chunk),
-                                call.mask is not None)
+                                call.mask is not None, self.sharded)
         y = impl(self, other.words if kind in ("frontier", "bitmat")
                  else other, call)
         if kind == "graph":
@@ -433,13 +556,15 @@ class GraphMatrix:
         (:class:`LowerTriangle`). The reference returns float32, exact
         only up to 2**24.
         """
+        if self.sharded:
+            dispatch.reject_sharded_row_chunk("mxm_sum", row_chunk)
         if self.tri_cache is None:
             self.tri_cache = LowerTriangle(
                 self.csr, self.tile_dim, self.n_rows,
                 build_b2sr=self.backend == "b2sr_cuda")
         call = OpCall(semiring=ARITHMETIC, row_chunk=row_chunk)
         impl = dispatch.resolve("mxm_sum", "tri", "full", self.backend,
-                                self._bucketed(row_chunk), True)
+                                self._bucketed(row_chunk), True, self.sharded)
         return impl(self, self.tri_cache, call)
 
     # -- generic-layer helpers ---------------------------------------------

@@ -18,10 +18,13 @@ a :class:`PlanKey` built from
     and ``csr`` rows read no bucketed slabs, so theirs is None),
   - the **padded batch width** (frontier columns after word padding; the
     batcher also rounds widths up to powers of two),
-  - the descriptor fields the loop bakes in (:func:`descriptor_key`).
+  - the descriptor fields the loop bakes in (:func:`descriptor_key`),
+  - for a sharded graph, the **mesh fingerprint** and the combine mode
+    (``partition.mesh_fingerprint``: axis names, shape, shard axes, each
+    slot's position and device), so plans never leak across meshes, comm
+    layouts, or between a sharded graph and its unsharded twin.
 
-Eviction is LRU with a fixed capacity. The ``mesh`` field stays None
-until the multi-GPU slice (ROADMAP Queue 1 item 9).
+Eviction is LRU with a fixed capacity.
 
 Telemetry, as the reference's (DESIGN.md §14): the cache counts hits,
 misses and evictions into ``plan_cache_{hits,misses,evictions}_total
@@ -77,7 +80,8 @@ class PlanKey:
     # descriptor fields the loop bakes in (``descriptor_key``); None for
     # plans whose loop shape is fully named by ``kernel``
     desc: Optional[Tuple] = None
-    # the mesh of a sharded graph; always None until the multi-GPU slice
+    # the mesh fingerprint plus the combine mode of a sharded graph (a
+    # plan closes over the shards' blocks); None when unsharded
     mesh: Optional[Tuple] = None
 
 
@@ -152,10 +156,14 @@ def plan_key(g: GraphMatrix, kernel: str, batch_width: int,
         b = g.buckets()
         bucket_layout = tuple((int(c.shape[0]), int(c.shape[1]))
                               for c in b.col_idx)
+    mesh_fp = None
+    if g.sharded:
+        from repro_torch.core.partition import mesh_fingerprint
+        mesh_fp = mesh_fingerprint(g.mesh, g.shard_axes) + (g.comm,)
     return PlanKey(graph_fp=g.fingerprint(), kernel=kernel,
                    device=str(g.device), backend=g.backend, tile_dim=g.tile_dim,
                    bucket_layout=bucket_layout, batch_width=batch_width,
-                   desc=desc)
+                   desc=desc, mesh=mesh_fp)
 
 
 class PlanCache:

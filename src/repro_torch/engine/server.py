@@ -50,9 +50,9 @@ fallback backend: it fails its group's handles, and the flush (or the
 has run. ``warmup`` raises it too. So a kernel that is broken on the card
 never gives way to a plain version there.
 
-The port's ``GraphMatrix`` has no sharded views until its multi-GPU
-slice: ``_backend_view`` only calls ``with_backend``, recipes are written
-with ``"sharded": false`` and ``warmup`` skips a recipe marked sharded.
+A sharded graph's ``csr`` view is its unsharded twin (the ``csr``
+backend has no sharded rows); recipes carry the graph's ``sharded`` flag,
+and ``warmup`` replays a recipe only on a graph whose flag matches.
 
 The server is a synchronous event loop citizen: ``submit`` / ``poll`` /
 ``flush`` from one thread, with an injectable clock for deterministic
@@ -474,13 +474,15 @@ class GraphQueryServer:
         return FALLBACK_CHAIN[idx:]
 
     def _backend_view(self, g: GraphMatrix, backend: str) -> GraphMatrix:
-        """``g`` on ``backend`` (memoized; the port has no sharded views)."""
+        """``g`` on ``backend`` (memoized): ``csr`` unshards, having no
+        sharded rows."""
         if backend == g.backend:
             return g
         key = (id(g), backend)
         view = self._backend_views.get(key)
         if view is None:
-            view = g.with_backend(backend)
+            base = g.unshard() if (backend == "csr" and g.sharded) else g
+            view = base.with_backend(backend)
             self._backend_views[key] = view
         return view
 
@@ -588,7 +590,7 @@ class GraphQueryServer:
             "graph_fp": fp, "kind": kind, "params": dict(params),
             "width": len(padded), "backend": gv.backend,
             "use_buckets": bool(gv.use_buckets),
-            "sharded": False,
+            "sharded": bool(g.sharded),
         }
         self._recipes[warmup_mod.recipe_key(recipe)] = recipe
 
@@ -613,12 +615,11 @@ class GraphQueryServer:
     def warmup(self, path: str) -> int:
         """Replay a warmup file: rebuild hot plans for registered graphs.
 
-        Each recipe whose graph fingerprint is registered (and which is
-        not marked sharded: the port has no sharded views yet) is
-        replayed as one dummy launch of the recorded kind/width/backend —
-        populating ``self.planner`` with exactly the plan the live query
-        would need. Returns the number of
-        recipes replayed; mismatched recipes are counted in
+        Each recipe whose graph fingerprint is registered (and whose
+        sharded flag matches the graph's) is replayed as one dummy launch
+        of the recorded kind/width/backend — populating ``self.planner``
+        with exactly the plan the live query would need. Returns the
+        number of recipes replayed; mismatched recipes are counted in
         ``stats['warmup_skipped']`` and recipes whose launch hit one of
         ``FALLBACK_ERRORS`` in ``['warmup_failed']``, and neither aborts
         startup; any other error (a kernel that does not build or launch)
@@ -627,7 +628,8 @@ class GraphQueryServer:
         n = 0
         for r in warmup_mod.load(path):
             g = self._graphs.get(r["graph_fp"])
-            if g is None or r["sharded"] or r["width"] > g.n_rows:
+            if (g is None or bool(g.sharded) != r["sharded"]
+                    or r["width"] > g.n_rows):
                 self.stats["warmup_skipped"] += 1
                 continue
             base = g if g.use_buckets == r["use_buckets"] else \

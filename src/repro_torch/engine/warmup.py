@@ -11,8 +11,8 @@ on. The plans close over device tensors, so they are not persisted;
 recipes are stable across restarts, upgrades and hardware moves.
 
 The format is the reference's, version 1, so a file written by either
-package loads in the other (the port's recipes carry
-``"sharded": false`` until its multi-GPU slice):
+package loads in the other; ``sharded`` is the served graph's flag, and a
+recipe replays only on a graph whose flag matches:
 
     {"version": 1,
      "recipes": [{"graph_fp": "...", "kind": "bfs",

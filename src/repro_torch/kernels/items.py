@@ -10,7 +10,8 @@ under the launch. Any cut gives the same result; the kernels merge the
 items of a cut row themselves.
 
 A ``b2sr_cuda`` registry row cuts once per stored orientation and
-keeps the cut with it (:func:`items_for`); kernels whose budgets agree
+keeps the cut with it (:func:`items_for`), a sharded row once per
+shard's row block (:func:`block_items`); kernels whose budgets agree
 share one cut. The pull step also keeps each tile-row's lane occupancy
 (:func:`lanes_for`): the lanes that some tile of the row can set.
 """
@@ -109,14 +110,22 @@ def check_items(items: WorkItems, device: torch.device) -> None:
                          f"{device}")
 
 
+def block_items(holder, budget: int, by_bits: bool = False) -> WorkItems:
+    """The work items of ``holder.b2sr`` for this cut, kept in
+    ``holder.cache``: a graph's stored orientation, or a shard's row block
+    (``core.partition.ShardBlock``). A row's cut depends on its own tiles
+    only, so a block's items cut each row as the whole graph's do."""
+    cache = holder.cache
+    key = ("work_items", budget, by_bits)
+    if key not in cache:
+        cache[key] = work_items(holder.b2sr, budget, by_bits)
+    return cache[key]
+
+
 def items_for(g, budget: int, by_bits: bool = False) -> WorkItems:
     """The work items of ``g``'s B2SR for this cut, kept with its stored
     orientation (kernels that cut alike share them)."""
-    cache = g.fwd.cache
-    key = ("work_items", budget, by_bits)
-    if key not in cache:
-        cache[key] = work_items(g.b2sr, budget, by_bits)
-    return cache[key]
+    return block_items(g.fwd, budget, by_bits)
 
 
 def row_lanes(tile_row_ptr: torch.Tensor,
@@ -139,10 +148,16 @@ def row_lanes(tile_row_ptr: torch.Tensor,
     return pack_bits(seen)
 
 
+def block_lanes(holder) -> torch.Tensor:
+    """:func:`row_lanes` of ``holder.b2sr``, kept in ``holder.cache``."""
+    cache = holder.cache
+    if "row_lanes" not in cache:
+        m = holder.b2sr
+        cache["row_lanes"] = row_lanes(m.tile_row_ptr, m.bit_tiles)
+    return cache["row_lanes"]
+
+
 def lanes_for(g) -> torch.Tensor:
     """:func:`row_lanes` of ``g``'s B2SR, kept with its stored
     orientation."""
-    cache = g.fwd.cache
-    if "row_lanes" not in cache:
-        cache["row_lanes"] = row_lanes(g.b2sr.tile_row_ptr, g.b2sr.bit_tiles)
-    return cache["row_lanes"]
+    return block_lanes(g.fwd)

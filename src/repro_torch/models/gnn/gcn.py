@@ -3,7 +3,8 @@
 The normalisation is refactored as Â·h = D^-1/2 · (A + I)·(D^-1/2 h), so
 the inner product is over the binary adjacency and goes through
 ``gnn_bit.layers.aggregate`` (the registry's dense mxm row: the
-``spmm_dense`` kernel on ``b2sr_cuda``). With ``use_b2sr=False`` (or a
+``spmm_dense`` kernel on ``b2sr_cuda``; row-sharded over
+``cfg.shardmap_agg_axes`` when set). With ``use_b2sr=False`` (or a
 batch without a graph) the float segment sum over the edge list is the
 baseline. The order of operations is the reference's (``forward`` and
 ``_aggregate`` of ``repro.models.gnn.gcn``): aggregate, then ``@ W + b``,
@@ -51,7 +52,8 @@ class GCN(nn.Module):
             inv_sqrt = torch.rsqrt(deg.clamp_min(1.0))[:, None]
             h = h * inv_sqrt
         if use_graph:
-            agg = bit_layers.aggregate(batch.graph, h) + h
+            agg = bit_layers.aggregate(
+                batch.graph, h, axes=tuple(cfg.shardmap_agg_axes)) + h
         else:
             agg = segment_agg(h[batch.senders], batch.receivers, n,
                               batch.edge_mask) + h

@@ -28,8 +28,10 @@ operation adds the bytes of its operands and of its outputs.
     and, on a CPU tensor, its plain version run with both modes
     suspended, so a plain version counts exactly what the kernel counts.
     Work items and scratch are the kernel's business and do not count.
-  - ``wire_bytes`` is 0: the port has no collectives until its
-    multi-GPU slice.
+  - ``wire_bytes`` are the bytes of the comm counts the sharded rows
+    record (``core.ops_sharded``: the reference's static element counts
+    of its collectives, :func:`add_wire_bytes`); 0 on an unsharded
+    graph.
 
 The report lands on ``Plan.cost`` and as ``plan_flops`` /
 ``plan_hbm_bytes`` / ``plan_wire_bytes`` gauges in the registry; its
@@ -53,7 +55,7 @@ from repro_torch.obs import metrics as _metrics
 
 __all__ = ["set_cost_accounting", "cost_accounting_enabled", "analyze_plan",
            "record_plan_cost", "roofline_table", "counted", "nbytes",
-           "COST_LABELS"]
+           "add_wire_bytes", "COST_LABELS"]
 
 _COST_ENABLED: List[bool] = [False]
 
@@ -88,6 +90,7 @@ class _Count:
 
     def __init__(self):
         self.aten_bytes = 0
+        self.wire_bytes = 0
         self.kernels: Dict[str, Dict[str, int]] = {}
 
     def kernel(self, name: str, n_bytes: int, ops: int) -> None:
@@ -120,6 +123,13 @@ def _byte_mode(count: _Count):
             return out
 
     return _ByteMode()
+
+
+def add_wire_bytes(n_bytes: int) -> None:
+    """Add a sharded call's comm bytes to the count in progress, if any."""
+    count = _ACTIVE[0]
+    if count is not None:
+        count.wire_bytes += int(n_bytes)
 
 
 def counted(io: Callable) -> Callable:
@@ -173,7 +183,7 @@ def analyze_plan(fn, args, kwargs) -> dict:
     kernel_ops = sum(k["ops"] for k in count.kernels.values())
     return {"flops": float(flop_mode.get_total_flops() + kernel_ops),
             "hbm_bytes": float(count.aten_bytes + kernel_bytes),
-            "wire_bytes": 0.0, "compile_s": elapsed,
+            "wire_bytes": float(count.wire_bytes), "compile_s": elapsed,
             "aten_bytes": float(count.aten_bytes),
             "kernels": count.kernels}
 
@@ -221,6 +231,20 @@ def roofline_table(registry: Optional[_metrics.MetricsRegistry] = None
         lat_by_key.setdefault(jk, [0.0, 0])
         lat_by_key[jk][0] += s.sum
         lat_by_key[jk][1] += s.count
+    # comm-volume counters from the sharded rows carry (op, backend,
+    # shards): aggregate over shard counts down to (op, backend), so the
+    # gather and exchange word totals land on every matching row
+    comm_by_key: Dict[tuple, Dict[str, float]] = {}
+    for cname, col in (("gather_words_total", "gathered_words"),
+                       ("exchange_words_total", "exchanged_words")):
+        c = reg.get(cname)
+        if c is None:
+            continue
+        for key, v in c._series.items():
+            labels = dict(zip(c.labelnames, key))
+            jk = (labels.get("op", ""), labels.get("backend", ""))
+            comm_by_key.setdefault(jk, {})
+            comm_by_key[jk][col] = comm_by_key[jk].get(col, 0.0) + float(v)
     rows: List[dict] = []
     for key in sorted(flops_g._series):
         labels = dict(zip(COST_LABELS, key))
@@ -230,7 +254,7 @@ def roofline_table(registry: Optional[_metrics.MetricsRegistry] = None
         mean_s = total_s / n
         flops = float(flops_g._series[key])
         hbm = float(bytes_g._series.get(key, 0.0)) if bytes_g else 0.0
-        rows.append({
+        row = {
             **labels,
             "n_launches": n,
             "mean_latency_s": mean_s,
@@ -238,5 +262,10 @@ def roofline_table(registry: Optional[_metrics.MetricsRegistry] = None
             "est_hbm_bytes": hbm,
             "achieved_flops_s": flops / mean_s if mean_s else None,
             "achieved_hbm_bytes_s": hbm / mean_s if mean_s else None,
-        })
+        }
+        comm = comm_by_key.get((labels.get("op", ""),
+                                labels.get("backend", "")))
+        if comm:
+            row.update(comm)
+        rows.append(row)
     return rows

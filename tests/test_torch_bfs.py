@@ -141,9 +141,11 @@ def test_registry_covers_reference_packed_rows():
               ("mxm", "frontier"), ("mxm_pull", "frontier"),
               ("mxm", "bitmat")}
     assert {k[:2] for k in got} == ported
+    # the sharded rows (k[6]) too: the b2sr backends register the
+    # reference's sharded keys, csr none
     want = {k[:3] + (backend[k[3]],) + k[4:]
             for k in r_dispatch.registered_keys(load_all=True)
-            if k[:2] in ported and not k[6]}
+            if k[:2] in ported}
     assert want == got
     for key in want:
         assert p_dispatch.resolve(*key) is not None

@@ -36,8 +36,10 @@ except ImportError:                      # a card's machine without JAX
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import gcn_cora  # noqa: E402
+from repro_torch.core import dispatch  # noqa: E402
 from repro_torch.core.descriptor import Descriptor  # noqa: E402
 from repro_torch.core.graphblas import GraphMatrix  # noqa: E402
+from repro_torch.core.mesh import make_mesh  # noqa: E402
 from repro_torch.core.operands import BitMatrix  # noqa: E402
 from repro_torch.core.semiring import BOOLEAN  # noqa: E402
 from repro_torch.data import graphs as PG  # noqa: E402
@@ -222,8 +224,18 @@ def test_layers_match_reference(backend, buckets, ref_backend):
         out_dtype=jnp.int32, **rkw))
     got = layers.binary_aggregate(pg, bm, out_dtype=torch.int32)
     assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        layers.aggregate(pg, torch.from_numpy(x), axes=("data",))
+    # axes=: the sharded rows over a prepared 2-slot CPU mesh (csr has
+    # none and refuses)
+    mesh = make_mesh((2,), ("data",), ["cpu"] * 2)
+    if backend == "csr":
+        with pytest.raises(ValueError, match="csr"):
+            layers.prepare_sharded(pg, ("data",), mesh=mesh)
+    else:
+        layers.prepare_sharded(pg, ("data",), mesh=mesh)
+        got = layers.aggregate(pg, torch.from_numpy(x), axes=("data",))
+        assert dispatch.last_key[6]
+        want = np.asarray(rlayers.aggregate(rg.ell, jnp.asarray(x), **rkw))
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
 
 
 # -- the GCN forward ---------------------------------------------------------------

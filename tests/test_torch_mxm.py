@@ -234,11 +234,11 @@ def test_registry_has_every_reference_graph_row():
     backend = {"b2sr": "b2sr", "b2sr_pallas": "b2sr_cuda", "csr": "csr"}
     want = {k[:3] + (backend[k[3]],) + k[4:]
             for k in r_dispatch.registered_keys(load_all=True)
-            if (k[0], k[1]) in (("mxm", "graph"), ("mxm_sum", "tri"))
-            and not k[6]}
+            if (k[0], k[1]) in (("mxm", "graph"), ("mxm_sum", "tri"))}
     got = {k for k in dispatch.registered_keys(load_all=True)
            if k[1] in ("graph", "tri")}
-    assert len(want) == 3 * (8 + 2) and want == got
+    # 3 backends unsharded, the 2 bit backends sharded
+    assert len(want) == 3 * (8 + 2) + 2 * (8 + 2) and want == got
 
 
 @needs_reference
