@@ -13,6 +13,7 @@ from repro_torch.configs.gnn import GNNConfig
 
 CONFIG = GNNConfig(
     name="gcn-cora",
+    family="gcn",
     n_layers=2,
     d_hidden=16,
     aggregator="mean",

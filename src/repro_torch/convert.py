@@ -20,10 +20,11 @@ reference's packed frontier words (``np.uint32[tiles, t, W]``) and
 activation words (``np.uint32[tiles, d]``) into a port ``FrontierBatch``
 and ``BitMatrix``, so one operand can be fed to both packages.
 
-The weights of a model cross over too: ``gcn_state_from_reference``
-turns the reference GCN's ``params`` into the ``state_dict`` of the
-port's ``models.gnn.gcn.GCN``, and ``gnn_model_from_reference`` a served
-model's ``((w, b), ...)`` and features into the arguments of the port's
+The weights of a model cross over too: ``gnn_state_from_reference``
+turns a reference GNN's ``params`` (any of the four families) into the
+``state_dict`` of the port's module (``gcn_state_from_reference`` the
+GCN's), and ``gnn_model_from_reference`` a served model's ``((w, b),
+...)`` and features into the arguments of the port's
 ``engine.queries.register_gnn_model``; ``opt_state_from_reference``
 turns the reference optimizer's state for those weights into the port's
 ``training.optimizer.OptState``, so both packages resume from one
@@ -183,6 +184,50 @@ def _gcn_layers(tree: Mapping[str, Mapping[str, np.ndarray]], dev,
     return out
 
 
+def _tree_state(tree, prefix: str, dev, convert) -> Dict[str, torch.Tensor]:
+    """A reference parameter tree of the gatedgcn, egnn and graphcast
+    families as ``state_dict`` entries, keyed by the tree's own path
+    (the port's modules carry the reference's names: ``embed_h``,
+    ``layers.{i}``, ``U``/``V``/``A``/``B``/``C``, ``norm_h``/``norm_e``,
+    ``phi_e``/``phi_x``/``phi_h``, ``layer_{i}`` of an MLP, ``head``,
+    ``grid_encoder`` … ``grid_decoder``): a dense layer ``{"w", "b"}``
+    gives ``.weight`` (``w`` transposed) and ``.bias``; a layer norm's
+    ``scale`` and ``bias`` keep their names."""
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, sub in enumerate(tree):
+            out.update(_tree_state(sub, f"{prefix}{i}.", dev, convert))
+        return out
+    if "w" in tree:
+        out = {prefix + "weight": convert(tree["w"], dev).T.contiguous()}
+        if "b" in tree:
+            out[prefix + "bias"] = convert(tree["b"], dev)
+        return out
+    out = {}
+    for k, sub in tree.items():
+        if isinstance(sub, (Mapping, list, tuple)):
+            out.update(_tree_state(sub, f"{prefix}{k}.", dev, convert))
+        else:
+            out[prefix + k] = convert(sub, dev)
+    return out
+
+
+def _family_state(family: str, tree, dev, convert) -> Dict[str, torch.Tensor]:
+    if family == "gcn":
+        return _gcn_layers(tree, dev, convert)
+    if family in ("gatedgcn", "egnn", "graphcast"):
+        return _tree_state(tree, "", dev, convert)
+    raise NotImplementedError(f"no weight carry-over for family {family!r}")
+
+
+def gnn_state_from_reference(cfg, params, device: DeviceLike = None
+                             ) -> Dict[str, torch.Tensor]:
+    """The reference's ``init_params(cfg, key)`` tree (numpy) of
+    ``cfg.family`` as the ``state_dict`` of the port's module (``GCN``,
+    ``GatedGCN``, ``EGNN`` or ``GraphCast``) on ``device``, float32."""
+    return _family_state(cfg.family, params, resolve_device(device), _f32)
+
+
 def _moment(a, dev: torch.device) -> torch.Tensor:
     """A float32 or bfloat16 numpy array (``ml_dtypes``' bfloat16, as JAX
     gives it) as a tensor of the same dtype: bfloat16 goes through
@@ -194,20 +239,21 @@ def _moment(a, dev: torch.device) -> torch.Tensor:
     return torch.tensor(a, device=dev)
 
 
-def opt_state_from_reference(opt_state, device: DeviceLike = None):
+def opt_state_from_reference(opt_state, device: DeviceLike = None,
+                             family: str = "gcn"):
     """The reference optimizer's ``OptState`` (``step``, ``m``, ``v`` as
-    numpy, the moments in the GCN's ``{"layer_i": {"w", "b"}}`` tree; ``v``
-    None for sgd) as the port's ``OptState`` on ``device``: the moments
-    keyed and laid out as :func:`gcn_state_from_reference` lays out the
-    weights, in their own dtype; ``step`` an int32 scalar."""
+    numpy, the moments in ``family``'s parameter tree; ``v`` None for
+    sgd) as the port's ``OptState`` on ``device``: the moments keyed and
+    laid out as :func:`gnn_state_from_reference` lays out the weights,
+    in their own dtype; ``step`` an int32 scalar."""
     from repro_torch.training.optimizer import OptState
     dev = resolve_device(device)
     step, m, v = opt_state
     return OptState(
         step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
                           device=dev),
-        m=_gcn_layers(m, dev, _moment),
-        v=None if v is None else _gcn_layers(v, dev, _moment))
+        m=_family_state(family, m, dev, _moment),
+        v=None if v is None else _family_state(family, v, dev, _moment))
 
 
 def gnn_model_from_reference(params, features,

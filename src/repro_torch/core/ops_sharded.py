@@ -877,3 +877,46 @@ for _backend in ("b2sr", _CUDA):
              sharded=True)(_tri_sum_sharded)
 
 del _b, _fn, _backend
+
+
+# ---------------------------------------------------------------------------
+# Call-time sharded SpMM (the reference's ambient-mesh entry point)
+# ---------------------------------------------------------------------------
+
+def spmm_b2sr_shardmap(graph, x: torch.Tensor, axes: Sequence[str],
+                       mesh=None) -> torch.Tensor:
+    """``A · x`` row-partitioned over ``mesh`` at call time, the port of
+    the reference's ``spmm_b2sr_shardmap``.
+
+    ``graph`` (a ``GraphMatrix``, or a ``B2SR`` wrapped on ``b2sr_cuda``)
+    is split into equal blocks of tile rows over the mesh axes among
+    ``axes`` and the product runs through the sharded dense ``mxm`` row
+    (on ``b2sr_cuda``: ``spmm_dense`` per shard, gather combine), the
+    result on the first slot. ``mesh`` defaults to every visible CUDA
+    device on the first axis. Where the reference's even-block contract
+    fails (no axis on the mesh; the tile rows or ``x``'s rows not a
+    multiple of the slot count; ``n_rows`` not a whole number of tiles)
+    it runs the unsharded row, as the reference does.
+    """
+    from repro_torch.core.graphblas import GraphMatrix
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.core.partition import shard_count
+    g = (graph if isinstance(graph, GraphMatrix)
+         else GraphMatrix.from_b2sr(graph, with_transpose=False,
+                                    backend=_CUDA))
+    if g.sharded:
+        g = g.unshard()
+    want = tuple(axes)
+    if mesh is None and want:
+        mesh = make_mesh((-1,) + (1,) * (len(want) - 1), want)
+    axes = tuple(a for a in want if mesh is not None
+                 and a in mesh.axis_names)
+    if not axes:
+        return g.mxm(x)
+    p_total = shard_count(mesh, axes)
+    t = g.tile_dim
+    n_tr = ceil_div(g.n_rows, t)
+    if (n_tr % p_total or x.shape[0] % p_total
+            or g.n_rows != n_tr * t):
+        return g.mxm(x)
+    return g.shard(mesh, axes, balanced=False).mxm(x)

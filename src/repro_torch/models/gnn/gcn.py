@@ -8,9 +8,10 @@ the inner product is over the binary adjacency and goes through
 batch without a graph) the float segment sum over the edge list is the
 baseline. The order of operations is the reference's (``forward`` and
 ``_aggregate`` of ``repro.models.gnn.gcn``): aggregate, then ``@ W + b``,
-so the float results match it. :func:`loss_fn` is the reference's
-node-level loss; the graph-level branch (molecule batches, ``n_graphs >
-1``) waits for ROADMAP Queue 1 item 10.
+so the float results match it. :func:`loss_fn` is the reference's:
+the masked node cross-entropy, or on a batch of several graphs
+(``n_graphs > 1``, molecule batches) the mean cross-entropy of the
+per-graph mean of the logits.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from torch import nn
 
 from repro_torch.configs.gnn import GNNConfig
 from repro_torch.gnn_bit import layers as bit_layers
-from repro_torch.models.gnn.common import (GraphBatch, node_ce_loss,
+from repro_torch.models.gnn.common import (GraphBatch, graph_ce_loss,
+                                           graph_pool, node_ce_loss,
                                            segment_agg)
 
 
@@ -73,13 +75,16 @@ class GCN(nn.Module):
 
 def loss_fn(model: Callable[[GraphBatch], torch.Tensor], batch: GraphBatch
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The masked node cross-entropy of ``model(batch)`` over
-    ``batch.train_mask``: ``(loss, {"ce": loss})``. ``model`` is a
-    :class:`GCN` or any callable from a batch to logits (the train step
-    passes one over its parameter dict)."""
-    if batch.n_graphs > 1:
-        raise NotImplementedError(
-            "the graph-level GCN loss (n_graphs > 1, molecule batches) is "
-            "not ported yet (ROADMAP Queue 1 item 10)")
-    loss = node_ce_loss(model(batch), batch.labels, batch.train_mask)
+    """``(loss, {"ce": loss})``: the masked node cross-entropy of
+    ``model(batch)`` over ``batch.train_mask`` or, with ``n_graphs > 1``,
+    the cross-entropy of ``graph_pool`` (mean) of the logits against the
+    graphs' labels. ``model`` is a :class:`GCN` or any callable from a
+    batch to logits."""
+    logits = model(batch)
+    if batch.n_graphs > 1:  # graph-level task (molecule shape)
+        pooled = graph_pool(logits, batch.graph_ids, batch.n_graphs,
+                            batch.node_mask)
+        loss = graph_ce_loss(pooled, batch.labels)
+    else:
+        loss = node_ce_loss(logits, batch.labels, batch.train_mask)
     return loss, {"ce": loss}

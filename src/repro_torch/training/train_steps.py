@@ -1,17 +1,17 @@
-"""Train and inference step builders for the GNN family, the port of
-``repro.training.train_steps``'s ``gnn_train_step`` and
-``gnn_infer_step``.
+"""Train and inference step builders for the GNN families, the port of
+``repro.training.train_steps``'s ``gnn_train_step``, ``gnn_infer_step``,
+``graphcast_train_step`` and ``graphcast_infer_step``.
 
 A step is a function of the parameters (a dict ``name -> tensor``, the
 model's ``named_parameters``), the optimizer state and a batch. The model
 is built once on the ``meta`` device and run over the given tensors with
 ``torch.func.functional_call``, so the step holds no weights of its own.
 One train step runs the forward, ``autograd.grad`` (on ``b2sr_cuda`` the
-aggregation's gradient is ``spmm_dense`` over Aᵀ) and ``optimizer.update``,
-and returns ``(params, opt_state, metrics)`` with ``loss``, ``lr`` and
-``grad_norm`` among the metrics. The port has the GCN only: the other
-families (gatedgcn, egnn, graphcast) and the LM and DIN steps wait for
-ROADMAP Queue 1 item 10.
+GCN aggregation's gradient is ``spmm_dense`` over Aᵀ) and
+``optimizer.update``, and returns ``(params, opt_state, metrics)`` with
+``loss``, ``lr`` and ``grad_norm`` among the metrics. Families: gcn,
+gatedgcn and egnn through ``gnn_*``, graphcast through ``graphcast_*``;
+the LM and DIN steps wait for ROADMAP Queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -19,24 +19,56 @@ from __future__ import annotations
 from typing import Callable, Dict, Tuple
 
 import torch
+from torch import nn
 from torch.func import functional_call
 
 from repro_torch.configs.gnn import GNNConfig
-from repro_torch.models.gnn import gcn
+from repro_torch.models.gnn import egnn, gatedgcn, gcn, graphcast
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training.optimizer import Tensors
 
-_GNN_MODULES = {"gcn": (gcn.GCN, gcn.loss_fn)}
+_GNN_MODULES = {"gcn": (gcn.GCN, gcn.loss_fn),
+                "gatedgcn": (gatedgcn.GatedGCN, gatedgcn.loss_fn),
+                "egnn": (egnn.EGNN, egnn.loss_fn)}
 
 
-def _family(cfg: GNNConfig):
+class _Loss(nn.Module):
+    """``loss(model, *batch)`` as a module over ``model``'s parameters
+    (prefixed ``model.``), so ``functional_call`` binds every parameter a
+    loss reads, the heads applied outside ``forward`` included."""
+
+    def __init__(self, model: nn.Module, loss: Callable):
+        super().__init__()
+        self.model, self.loss = model, loss
+
+    def forward(self, *batch):
+        return self.loss(self.model, *batch)
+
+
+def _family(cfg: GNNConfig, mesh=None):
+    """The family's model on the ``meta`` device and its loss. ``mesh``
+    reaches GatedGCN's sharded aggregation (the GCN finds its sharded
+    graph through ``gnn_bit.layers.prepare_sharded``)."""
     if cfg.family not in _GNN_MODULES:
         raise NotImplementedError(
-            f"GNN family {cfg.family!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 10); ported: {sorted(_GNN_MODULES)}")
+            f"GNN family {cfg.family!r} has no gnn step (graphcast: "
+            f"graphcast_train_step; ported: {sorted(_GNN_MODULES)})")
     model_cls, loss = _GNN_MODULES[cfg.family]
+    kw = {"mesh": mesh} if cfg.family == "gatedgcn" else {}
     with torch.device("meta"):
-        return model_cls(cfg), loss
+        return model_cls(cfg, **kw), loss
+
+
+def _bound_loss(model: nn.Module, loss: Callable) -> Callable:
+    """``loss_fn(params, *batch)`` over the parameter dict."""
+    wrapper = _Loss(model, loss)
+
+    def loss_fn(params: Tensors, *batch):
+        return functional_call(
+            wrapper, {f"model.{k}": v for k, v in params.items()}, batch,
+            strict=True)
+
+    return loss_fn
 
 
 def value_and_grad(loss_fn: Callable, params: Tensors, *batch
@@ -45,7 +77,13 @@ def value_and_grad(loss_fn: Callable, params: Tensors, *batch
     parameter (``jax.value_and_grad(…, has_aux=True)``'s contract)."""
     leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
     loss, metrics = loss_fn(leaves, *batch)
-    grads = torch.autograd.grad(loss, list(leaves.values()))
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    # a parameter the loss does not reach (GatedGCN's edge embedding on a
+    # batch without edge features, EGNN's last coordinate update) gets a
+    # zero gradient, as under JAX
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves.values(), grads)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return (loss.detach(), metrics), dict(zip(leaves, grads))
 
@@ -58,21 +96,16 @@ def _apply(opt_cfg: opt_mod.OptimizerConfig, loss_fn: Callable,
     return new_params, new_state, dict(metrics, loss=loss, **opt_metrics)
 
 
-def gnn_loss_fn(cfg: GNNConfig) -> Callable:
+def gnn_loss_fn(cfg: GNNConfig, mesh=None) -> Callable:
     """``loss_fn(params, batch) -> (loss, {"ce": loss})`` of ``cfg``'s
     family over the parameter dict."""
-    model, loss = _family(cfg)
-
-    def loss_fn(params: Tensors, batch):
-        return loss(lambda b: functional_call(model, params, (b,)), batch)
-
-    return loss_fn
+    return _bound_loss(*_family(cfg, mesh))
 
 
-def gnn_train_step(cfg: GNNConfig,
-                   opt_cfg: opt_mod.OptimizerConfig) -> Callable:
+def gnn_train_step(cfg: GNNConfig, opt_cfg: opt_mod.OptimizerConfig,
+                   mesh=None) -> Callable:
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``."""
-    loss_fn = gnn_loss_fn(cfg)
+    loss_fn = gnn_loss_fn(cfg, mesh)
 
     def step(params: Tensors, opt_state: opt_mod.OptState, batch):
         return _apply(opt_cfg, loss_fn, params, opt_state, batch)
@@ -80,12 +113,52 @@ def gnn_train_step(cfg: GNNConfig,
     return step
 
 
-def gnn_infer_step(cfg: GNNConfig) -> Callable:
-    """``step(params, batch) -> logits`` (no gradients)."""
-    model, _ = _family(cfg)
+def gnn_infer_step(cfg: GNNConfig, mesh=None) -> Callable:
+    """``step(params, batch) -> logits`` (no gradients; EGNN's node
+    states, the first of its outputs)."""
+    model, _ = _family(cfg, mesh)
 
     @torch.no_grad()
     def step(params: Tensors, batch):
-        return functional_call(model, params, (batch,))
+        out = functional_call(model, params, (batch,), strict=True)
+        return out[0] if isinstance(out, tuple) else out
+
+    return step
+
+
+def graphcast_loss_fn(cfg: GNNConfig, mesh_spec: graphcast.MeshSpec
+                      ) -> Callable:
+    """``loss_fn(params, feat, target) -> (loss, {"mse": loss})``."""
+    with torch.device("meta"):
+        model = graphcast.GraphCast(cfg)
+    bound = _bound_loss(model, graphcast.loss_fn)
+
+    def loss_fn(params: Tensors, feat, target):
+        return bound(params, feat, target, mesh_spec)
+
+    return loss_fn
+
+
+def graphcast_train_step(cfg: GNNConfig, opt_cfg: opt_mod.OptimizerConfig,
+                         mesh_spec: graphcast.MeshSpec) -> Callable:
+    """``step(params, opt_state, feat, target) -> (params, opt_state,
+    metrics)``."""
+    loss_fn = graphcast_loss_fn(cfg, mesh_spec)
+
+    def step(params: Tensors, opt_state: opt_mod.OptState, feat, target):
+        return _apply(opt_cfg, loss_fn, params, opt_state, feat, target)
+
+    return step
+
+
+def graphcast_infer_step(cfg: GNNConfig,
+                         mesh_spec: graphcast.MeshSpec) -> Callable:
+    """``step(params, feat) -> prediction`` (no gradients)."""
+    with torch.device("meta"):
+        model = graphcast.GraphCast(cfg)
+
+    @torch.no_grad()
+    def step(params: Tensors, feat):
+        return functional_call(model, params, (feat, mesh_spec), strict=True)
 
     return step

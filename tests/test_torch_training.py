@@ -207,9 +207,10 @@ def test_loss_and_grads_match_reference(backend):
                        grads, 0.0)
 
 
-def test_loss_fn_masks_and_rejects_graph_level_batches():
+def test_loss_fn_masks_and_takes_graph_level_batches():
     batch = port_batch()
-    params = {k: v.detach() for k, v in GCN(CFG).named_parameters()}
+    params = (port_params(ref_setup()[2]) if jnp is not None else
+              {k: v.detach() for k, v in GCN(CFG).named_parameters()})
     logits = train_steps.gnn_infer_step(CFG)(params, batch)
     assert tuple(logits.shape) == (N, CFG.n_classes)
     per = torch.logsumexp(logits, -1) - logits[torch.arange(N), batch.labels]
@@ -218,11 +219,29 @@ def test_loss_fn_masks_and_rejects_graph_level_batches():
     empty, _ = train_steps.gnn_loss_fn(CFG)(params, dataclasses.replace(
         batch, train_mask=torch.zeros(N, dtype=torch.bool)))
     assert float(empty) == 0.0                   # divided by max(0, 1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        loss_fn(GCN(CFG), dataclasses.replace(batch, n_graphs=2))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # graph level: the mean over graphs of logsumexp - gold of the
+    # per-graph mean of the logits, as the reference's branch
+    gids = torch.arange(N) * 3 // N
+    glabels = torch.tensor([1, 3, 0])
+    graphs = dataclasses.replace(batch, n_graphs=3, graph_ids=gids,
+                                 labels=glabels)
+    gloss, _ = train_steps.gnn_loss_fn(CFG)(params, graphs)
+    pooled = torch.stack([logits[gids == g].mean(0) for g in range(3)])
+    torch.testing.assert_close(gloss, (torch.logsumexp(pooled, -1) - pooled[
+        torch.arange(3), glabels]).mean())
+    if jnp is not None:
+        rcfg, rbatch, rparams, _, _ = ref_setup()
+        rloss, _ = rgcn.loss_fn(rparams, rbatch.replace(
+            n_graphs=3, graph_ids=jnp.asarray(gids.numpy(), jnp.int32),
+            labels=jnp.asarray(glabels.numpy(), jnp.int32)), rcfg)
+        np.testing.assert_allclose(float(gloss), float(rloss), rtol=RTOL,
+                                   atol=ATOL)
+    # the other families build their steps; an unknown one still raises
+    assert callable(train_steps.gnn_train_step(
+        dataclasses.replace(CFG, family="gatedgcn"), opt.OptimizerConfig()))
+    with pytest.raises(NotImplementedError, match="graphsage"):
         train_steps.gnn_train_step(dataclasses.replace(CFG,
-                                                       family="gatedgcn"),
+                                                       family="graphsage"),
                                    opt.OptimizerConfig())
 
 
