@@ -15,8 +15,10 @@ BitGNN inference (``gnn_infer`` at gcn-cora's widths), the serving front
 end (``GraphQueryServer`` with its telemetry, warm restart and injected
 faults), GCN training (``train_steps.gnn_train_step`` and the trainer
 at the same widths) and the sharded rows over a mesh of slots on the
-card (``GraphMatrix.shard``) through the port's entry points. Each phase
-prints one JSON line; a failed phase exits non-zero.
+card (``GraphMatrix.shard``), the other GNN families and the LM family
+(five configs at full width, block-sparse attention over B2SR block
+masks) through the port's entry points. Each phase prints one JSON line;
+a failed phase exits non-zero.
 
   1. kernels: each kernel against its plain PyTorch version
      (``kernels/bmv/ref.py``) on the card, at tile dims 4/8/16/32 on small
@@ -241,6 +243,54 @@ prints one JSON line; a failed phase exits non-zero.
      shard). ``sample_profile`` (64 rows) beside the B2SR's real bytes at
      t = 4, 8, 16, 32. Prints the step walls, the sharded/dense ratio,
      peak device memory per part, the cuts (``reduced``) and the card.
+ 23. lm: the LM family (no hand kernel: attention, RoPE, the MoE dispatch
+     and the matmuls are PyTorch operations, as the reference's are
+     ``jnp``), after the graphs are freed; random seeded weights from the
+     port's own initialisation, float32 checks with TF32 off.
+     (b) phi4-mini-3.8b (arXiv:2412.08905: 32 layers, d 3,072, 24/8
+     heads of 128, d_ff 8,192, vocab 200,064, tied) with float32 weights
+     on one 2,048-token prompt: ``lm_decode_step`` after an
+     ``lm_prefill_step`` of the first 2,047 tokens equals the forward's
+     last position within rtol and atol 2e-3; the bfloat16 forward's
+     last logits within 5e-2 of max |logit| of the float32 run; layer
+     0's ``chunked_causal_attention`` at S = 4,096 within 1e-5 of max
+     |out| of ``gqa_attention`` with the causal mask (float32
+     probabilities) and 1e-2 (bfloat16); its q and k in bfloat16 give
+     ``attn_scores`` within 1e-5 of max |s| of the float32 product of
+     the same values (the scores are summed in float32, never rounded to
+     bfloat16). (a) The same weights in
+     bfloat16 (7.67 GB): a 32,768-token prefill (``prefill_32k`` at
+     batch 1; the chunked path) and 32 greedy decode steps into a cache
+     of 32,800 (``decode_32k``'s context at batch 1): prefill tokens/s,
+     decode p50/p99 and tokens/s, the cache bytes and the time of the
+     weights-and-cache read at 3.35 TB/s; one decode step under
+     torch.profiler. (c) phi4 with 2 of 32 layers (816 M parameters),
+     AdamW, ``remat``, train_4k's 4,096 tokens at batch 2: 3 steps on
+     one batch (lr 1e-3): losses finite, step 1 within 0.5 of the loss
+     the initialisation gives (ln V + σ²/2, σ² the logits' variance),
+     step 3 below step 1; one step under torch.profiler; ``grad_accum=2``
+     against 1 at float32 compute and float32 probabilities (SGD's
+     momentum after one step is the gradient): within 1e-4 of max |g|.
+     (d) qwen3-moe-30b-a3b (hf:Qwen/Qwen3-30B-A3B: 128 experts, top-8,
+     d_ff 768, QK-norm) with 4 of 48 layers in bfloat16 (3.11 B
+     parameters): a 4,096-token prefill and 16 decode steps; layer 0's
+     ``moe_ffn`` at float32 on 1,024 tokens: at capacity factor 8.0
+     nothing drops and y equals a plain per-expert sum of gate ×
+     SwiGLU_e(x) over each token's top-8 within 1e-4 of max |y|; at 1.25
+     the dropped assignments equal a numpy recount of the same routing
+     and y the plain sum over the kept ones; one train step with 2
+     layers (AdamW, bfloat16 moments), its loss within 0.5 of the
+     initialisation's. (e) gemma-7b (GeGLU, head_dim 256) and
+     minitron-4b (ReLU², untied head) at full width with 2 layers: a
+     2,048-token prefill and 8 decode steps each; arctic-480b at its
+     reduced config: one train step (SGD, bfloat16 parameters and
+     moments) and a prefill with 4 decode steps. (f) Block-sparse
+     attention: ``local_strided_pattern(window=4, stride=8)`` over S =
+     16,384 in blocks of 128, stored as B2SR at tile dims 8 and 32 (the
+     same block lists), with phi4's 24 heads of 128 in float32, within
+     rtol and atol 2e-5 of a dense masked attention computed head by
+     head; both walls and the share of score blocks computed. Prints
+     peak device memory per part, the cuts (``reduced``) and the card.
 
 The kernels phase also holds ``bmm_tc`` and ``spgemm_bbb`` against their
 plain versions on the small graphs at every tile dim (SpGEMM with no
@@ -287,6 +337,7 @@ import argparse
 import dataclasses
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -399,6 +450,28 @@ PROFILE_SAMPLES = 64           # sample_profile's rows
 #: families: the train steps also run once under torch.profiler
 PROFILED = ("gatedgcn/minibatch_lg", "gatedgcn/molecule", "egnn/molecule",
             "graphcast/1deg_4_layers")
+LM_PREFILL = 32768             # lm (a): prefill_32k's prompt, batch 32 -> 1
+LM_DECODE = 32                 # lm (a): greedy steps into a 32,800 cache
+LM_CHECK = 2048                # lm (b): the float32 checks' prompt
+LM_CHUNK_CHECK = 4096          # lm (b): chunked vs plain attention, S
+LM_TRAIN = (2, 2, 4096)        # lm (c): layers, batch, tokens a row
+LM_TRAIN_STEPS = 3
+LM_LR = 1e-3
+LM_DECODE_TOL = 2e-3           # decode vs forward (tests/test_models.py)
+LM_BF16_TOL = 5e-2             # bf16 logits vs float32, of max |logit|
+LM_CHUNK_TOL = 1e-5            # chunked vs plain, of max |out|
+LM_CHUNK_BF16_TOL = 1e-2       # the same with bfloat16 probabilities
+LM_SCORES_TOL = 1e-5           # bfloat16 q·k summed in float32, of max |s|
+LM_ACCUM_TOL = 1e-4            # grad_accum 2 vs 1, of max |g|
+MOE_LAYERS = (4, 2)            # lm (d): qwen3 serving and training depth
+MOE_PREFILL, MOE_DECODE = 4096, 16
+MOE_CHECK_TOKENS = 1024
+MOE_TOL = 1e-4                 # moe_ffn vs the plain sum, of max |y|
+OTHER_PREFILL, OTHER_DECODE = 2048, 8   # lm (e): gemma / minitron, 2 layers
+BS_SEQ, BS_BLOCK = 16384, 128  # lm (f): block-sparse attention
+BS_TILE_DIMS = (8, 32)
+BS_TOL = 2e-5
+BF16_TFLOPS = 989e12           # H100 SXM dense bf16 (data sheet)
 #: shard: the kernels the sharded rows launch per shard
 SHARD_KERNELS = ("bmv_bbb_push", "bmv_bbb_pull", "bmv_bff", "bmv_bbf",
                  "bmm_tc", "spgemm_bbb", "spmm_bbb", "spmm_dense",
@@ -3952,6 +4025,445 @@ def phase_families(g, adj):
     return gcn_launches + sm_launches
 
 
+def lm_params(cfg, dev, seed: int, dtype=None):
+    """``cfg``'s transformer drawn by the port's own seeded initialisation
+    on ``dev`` (in ``dtype``, default float32), as named tensors."""
+    import torch
+    from repro_torch import nn as rnn
+    from repro_torch.models.transformer import Transformer
+    with torch.device("meta"):
+        model = Transformer(cfg)
+    model = model.to_empty(device=dev)
+    if dtype is not None:
+        model = model.to(dtype)
+    rnn.reset_parameters(model, torch.Generator(device=dev).manual_seed(
+        SEED + seed))
+    return {k: v.detach() for k, v in model.named_parameters()}
+
+
+def lm_serve(cfg, params, prompt, n_decode: int, profile_decode=False):
+    """``lm_prefill_step`` of ``prompt`` [B, S], its keys and values
+    copied into a cache of ``S + n_decode`` (``prefill_into_cache``, one
+    wall for both), then ``n_decode`` greedy
+    ``lm_decode_step``s: walls, tokens, cache bytes, finiteness (and one
+    more decode step under torch.profiler)."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.training import train_steps
+    prefill = train_steps.lm_prefill_step(cfg)
+    decode = train_steps.lm_decode_step(cfg)
+    B, S = prompt.shape
+    (logits, ck, cv), prefill_s = sync_time(lambda: T.prefill_into_cache(
+        cfg, lambda t: prefill(params, t), prompt, S + n_decode))
+    finite = bool(torch.isfinite(logits).all())
+    tok = logits[:, -1].argmax(-1).reshape(B, 1)
+    walls, toks = [], [tok]
+    for i in range(n_decode):
+        (logits, ck, cv), wall = sync_time(
+            lambda: decode(params, tok, ck, cv, S + i))
+        finite &= bool(torch.isfinite(logits).all())
+        tok = logits[:, -1].argmax(-1).reshape(B, 1)
+        walls.append(wall)
+        toks.append(tok)
+    out = {"batch": B, "prompt": S, "decode_steps": n_decode,
+           "prefill_s": prefill_s, "prefill_tok_s": B * S / prefill_s,
+           "decode_step_s": walls,
+           "decode_p50_ms": 1e3 * float(np.percentile(walls, 50)),
+           "decode_p99_ms": 1e3 * float(np.percentile(walls, 99)),
+           "decode_tok_s": B / statistics.mean(walls),
+           "cache_bytes": 2 * ck.numel() * ck.element_size(),
+           "finite": finite,
+           "tokens": torch.cat(toks, 1)[0, :8].tolist(),
+           "tokens_in_vocab": bool(all(0 <= int(t.min()) and int(t.max())
+                                       < cfg.vocab_size for t in toks))}
+    if profile_decode:
+        out["decode_profile"] = profiled(
+            lambda: decode(params, tok, ck, cv, S + n_decode - 1))
+    return out
+
+
+def init_loss(cfg) -> float:
+    """The cross entropy expected at the port's initialisation: the head
+    sees unit-RMS states, so the logits are Gaussian with variance
+    ``d·0.02²`` (tied to the N(0, 0.02²) embedding) or 1 (an N(0, 1/d)
+    head), and E[logsumexp] is about ln V + σ²/2."""
+    var = cfg.d_model * 0.02 ** 2 if cfg.tie_embeddings else 1.0
+    return math.log(cfg.vocab_size) + var / 2
+
+
+def plain_moe(p, x, moe, cap=None):
+    """``moe_ffn``'s routed output written plainly: per expert, the
+    tokens whose top-k holds it (in token order; with ``cap``, the first
+    ``cap`` of them) get gate × SwiGLU_e(x); and the top-k."""
+    import torch
+    import torch.nn.functional as F
+    xt = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax(xt @ p["router.weight"].T, -1)
+    gate, idx = torch.topk(probs, moe.top_k, dim=-1)
+    gate = gate / gate.sum(-1, keepdim=True)
+    y = torch.zeros_like(xt)
+    for e in range(moe.n_experts):
+        n, j = (idx == e).nonzero(as_tuple=True)
+        n, j = n[:cap], j[:cap]
+        h = F.silu(xt[n] @ p["w_gate"][e]) * (xt[n] @ p["w_up"][e])
+        y.index_add_(0, n, (h @ p["w_down"][e]) * gate[n, j, None])
+    return y.reshape(x.shape), idx
+
+
+def phase_lm():
+    """The LM family at full width (see the module doc, phase 23)."""
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import nn as rnn
+    from repro_torch.configs import (arctic_480b, gemma_7b, minitron_4b,
+                                     phi4_mini_3_8b, qwen3_moe_30b_a3b)
+    from repro_torch.core import blockmask
+    from repro_torch.data import synthetic
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_steps
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    problems, out, peaks, prof = [], {}, {}, {}
+    out["start_allocated_bytes"] = torch.cuda.memory_allocated()
+    out["tf32"] = bool(torch.backends.cuda.matmul.allow_tf32)
+    if out["tf32"]:
+        problems.append("float32 matmuls run as TF32")
+    torch.cuda.reset_peak_memory_stats()
+
+    def part_done(name):
+        peaks[name] = torch.cuda.max_memory_allocated()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def of_max(got, want) -> float:
+        return float((got.float() - want.float()).abs().max()
+                     / want.float().abs().max())
+
+    # -- (b) phi4-mini-3.8b, float32 weights: decode, bf16, chunked -------
+    cfg = phi4_mini_3_8b.CONFIG
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = lm_params(cfg, dev, 20)
+    tokens = synthetic.lm_batch(cfg, 1, LM_CHECK, seed=SEED, device=dev)[0]
+    pre32 = train_steps.lm_prefill_step(cfg32)
+    (full, _), full_s = sync_time(lambda: pre32(params, tokens))
+    _, K, V = T.prefill_into_cache(cfg32, lambda t: pre32(params, t),
+                                   tokens[:, :-1], LM_CHECK)
+    dec, _, _ = train_steps.lm_decode_step(cfg32)(params, tokens[:, -1:], K,
+                                                  V, LM_CHECK - 1)
+    del K, V
+    dec_ok = bool(torch.allclose(dec[:, 0], full[:, -1], rtol=LM_DECODE_TOL,
+                                 atol=LM_DECODE_TOL))
+    (bf, _), bf_s = sync_time(lambda: train_steps.lm_prefill_step(cfg)(
+        params, tokens))
+    bf_rel = of_max(bf[:, -1], full[:, -1])
+    if not dec_ok:
+        problems.append("phi4 decode_step != forward's last position")
+    if not bf_rel <= LM_BF16_TOL:
+        problems.append(f"phi4 bfloat16 logits {bf_rel} of max |logit|")
+    checks = {"prompt": LM_CHECK, "forward_s": full_s, "bf16_forward_s": bf_s,
+              "decode_vs_forward_max_abs": float(
+                  (dec[:, 0] - full[:, -1]).abs().max()),
+              "max_abs_logit": float(full[:, -1].abs().max()),
+              "bf16_vs_f32_of_max_logit": bf_rel}
+    blk = T.Block(cfg32).to(dev)
+    blk.load_state_dict({k[len("layers.0."):]: v for k, v in params.items()
+                         if k.startswith("layers.0.")})
+    t4k = synthetic.lm_batch(cfg, 1, LM_CHUNK_CHECK, seed=SEED + 1,
+                             device=dev)[0]
+    S4 = LM_CHUNK_CHECK
+    with torch.no_grad():
+        x = blk.attn_norm(F.embedding(t4k.long(), params["embed"]))
+        pos = torch.arange(S4, device=dev)[None]
+        q = T.rope(blk.wq(x).reshape(1, S4, cfg.n_heads, cfg.head_dim),
+                   pos, cfg.rope_theta)
+        k = T.rope(blk.wk(x).reshape(1, S4, cfg.n_kv_heads, cfg.head_dim),
+                   pos, cfg.rope_theta)
+        v = blk.wv(x).reshape(1, S4, cfg.n_kv_heads, cfg.head_dim)
+        causal = torch.tril(torch.ones((S4, S4), dtype=torch.bool,
+                                       device=dev))[None, None]
+        plain, plain_s = sync_time(lambda: T.gqa_attention(q, k, v, causal))
+        chunk = {}
+        for probs_bf16, tol in ((False, LM_CHUNK_TOL),
+                                (True, LM_CHUNK_BF16_TOL)):
+            c = dataclasses.replace(cfg32, attn_probs_bf16=probs_bf16)
+            got, wall = sync_time(lambda: T.chunked_causal_attention(
+                q, k, v, c))
+            err = of_max(got, plain)
+            chunk[f"probs_bf16_{probs_bf16}"] = {"of_max": err, "s": wall}
+            if not err <= tol:
+                problems.append(f"chunked attention (probs_bf16 "
+                                f"{probs_bf16}) {err} of max |out|")
+        # the scores of bfloat16 q and k against the float32 product of
+        # the same values: rounding them to bfloat16 would miss by ~2e-3
+        qg = q.bfloat16().reshape(1, S4, cfg.n_kv_heads, -1, cfg.head_dim)
+        s16, s32 = (T.attn_scores(qg.to(dt), k.bfloat16().to(dt))
+                    for dt in (torch.bfloat16, torch.float32))
+        checks["scores_bf16_vs_f32_of_max"] = of_max(s16, s32)
+        checks["scores_rounded_to_bf16_of_max"] = of_max(s16.bfloat16(), s32)
+        checks["max_abs_score"] = float(s32.abs().max())
+        del qg, s16, s32
+        if not checks["scores_bf16_vs_f32_of_max"] <= LM_SCORES_TOL:
+            problems.append("bfloat16 attention scores "
+                            f"{checks['scores_bf16_vs_f32_of_max']} of "
+                            "max |s| from their float32 product")
+    checks["chunked_vs_plain"] = dict(chunk, S=S4, plain_s=plain_s)
+    out["phi4_checks"] = checks
+    del blk, x, q, k, v, causal, plain, got, full, bf, dec
+    params16 = rnn.tree_cast(params, torch.bfloat16)
+    del params
+    part_done("phi4_checks")
+
+    # -- (a) phi4-mini-3.8b serving: a 32k prefill and 32 decode steps ----
+    prompt = synthetic.lm_batch(cfg, 1, LM_PREFILL, seed=SEED + 2,
+                                device=dev)[0]
+    res = lm_serve(cfg, params16, prompt, LM_DECODE, profile_decode=True)
+    prof["phi4/decode_step"] = res.pop("decode_profile")
+    w_bytes = rnn.param_bytes(params16)
+    flops = (2 * (cfg.n_params() - cfg.vocab_size * cfg.d_model)
+             * LM_PREFILL + 2 * cfg.d_model * cfg.vocab_size
+             + 2 * LM_PREFILL * LM_PREFILL * cfg.q_dim * cfg.n_layers)
+    res.update(weight_bytes=w_bytes, n_params=cfg.n_params(),
+               decode_read_ms=1e3 * (w_bytes + res["cache_bytes"])
+               / HBM_BYTES_PER_S,
+               prefill_flops=flops,
+               prefill_bound_s=flops / BF16_TFLOPS)
+    if not (res["finite"] and res["tokens_in_vocab"]):
+        problems.append("phi4 serving: logits not finite or bad tokens")
+    out["phi4_serve"] = res
+    del params16, prompt
+    part_done("phi4_serve")
+
+    # -- (c) phi4-mini-3.8b training, 2 layers at train_4k's 4,096 tokens -
+    n_layers, batch, seq = LM_TRAIN
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers)
+    params = lm_params(cfg2, dev, 21)
+    t, lab = synthetic.lm_batch(cfg2, batch, seq, seed=SEED + 3, device=dev)
+    ocfg = opt_mod.OptimizerConfig(name="adamw", lr=LM_LR, warmup_steps=0)
+    step = train_steps.lm_train_step(cfg2, ocfg)
+    p, o, losses, walls = params, opt_mod.init(ocfg, params), [], []
+    for _ in range(LM_TRAIN_STEPS):
+        (p, o, m), wall = sync_time(lambda: step(p, o, t, lab))
+        losses.append(float(m["loss"]))
+        walls.append(wall)
+    del p, o, m
+    peaks["phi4_train_steps"] = torch.cuda.max_memory_allocated()
+    if not (all(np.isfinite(losses)) and abs(losses[0] - init_loss(cfg))
+            <= 0.5 and losses[-1] < losses[0]):
+        problems.append(f"phi4 train losses {losses} (at init "
+                        f"{init_loss(cfg)})")
+    prof["phi4/train_step_2_layers"] = profiled(
+        lambda: step(params, opt_mod.init(ocfg, params), t, lab))
+    # SGD's momentum after one step is the gradient (no clipping); at
+    # float32 compute and float32 attention probabilities, since bfloat16
+    # rounds the two microbatches' products and probabilities apart
+    sgd = opt_mod.OptimizerConfig(name="sgd", lr=LM_LR, warmup_steps=0,
+                                  grad_clip=1e9)
+    cfg2_32 = dataclasses.replace(cfg2, dtype="float32",
+                                  attn_probs_bf16=False)
+    g1 = train_steps.lm_train_step(cfg2_32, sgd)(
+        params, opt_mod.init(sgd, params), t, lab)[1].m
+    g2 = train_steps.lm_train_step(cfg2_32, sgd, grad_accum=2)(
+        params, opt_mod.init(sgd, params), t, lab)[1].m
+    accum = max(of_max(g2[k], g1[k]) for k in g1)
+    if not accum <= LM_ACCUM_TOL:
+        problems.append(f"phi4 grad_accum 2 vs 1: {accum} of max |g|")
+    out["phi4_train"] = {"layers": n_layers, "batch": batch, "seq": seq,
+                         "n_params": cfg2.n_params(), "optimizer": "adamw",
+                         "losses": losses,
+                         "ln_vocab": math.log(cfg.vocab_size),
+                         "init_loss": init_loss(cfg),
+                         "step_s": walls, "grad_accum_2_of_max_g": accum}
+    del params, g1, g2, t, lab
+    part_done("phi4_train_accum")
+
+    # -- (d) qwen3-moe-30b-a3b: 4 layers serving, MoE checks, 2 layers train
+    qcfg = qwen3_moe_30b_a3b.CONFIG
+    scfg = dataclasses.replace(qcfg, n_layers=MOE_LAYERS[0])
+    params16 = lm_params(scfg, dev, 22, torch.bfloat16)
+    prompt = synthetic.lm_batch(scfg, 1, MOE_PREFILL, seed=SEED + 4,
+                                device=dev)[0]
+    res = lm_serve(scfg, params16, prompt, MOE_DECODE)
+    res.update(layers=MOE_LAYERS[0], n_params=scfg.n_params(),
+               weight_bytes=rnn.param_bytes(params16))
+    if not (res["finite"] and res["tokens_in_vocab"]):
+        problems.append("qwen3 serving: logits not finite or bad tokens")
+    moe_p = {k[len("layers.0.moe."):]: v.float()
+             for k, v in params16.items() if k.startswith("layers.0.moe.")}
+    del params16, prompt
+    layer = moe_mod.MoE(qcfg).to(dev)
+    layer.load_state_dict(moe_p)
+    x = torch.randn((1, MOE_CHECK_TOKENS, qcfg.d_model),
+                    generator=torch.Generator(device=dev).manual_seed(
+                        SEED + 24), device=dev)
+    moe_checks = {}
+    with torch.no_grad():
+        for cf in (8.0, qcfg.moe.capacity_factor):
+            c = dataclasses.replace(qcfg, moe=dataclasses.replace(
+                qcfg.moe, capacity_factor=cf))
+            cap = moe_mod.capacity(MOE_CHECK_TOKENS, c.moe)
+            (y, _), wall = sync_time(lambda: moe_mod.moe_ffn(layer, x, c))
+            _, _, gates, experts = moe_mod.route(layer, x.reshape(
+                -1, qcfg.d_model), c.moe)
+            _, _, dropped = moe_mod.dispatch_table(
+                experts, gates, c.moe.n_experts, cap)
+            want, idx = plain_moe(moe_p, x, c.moe, cap)
+            counts = np.bincount(idx.reshape(-1).cpu().numpy(),
+                                 minlength=c.moe.n_experts)
+            recount = int(np.maximum(counts - cap, 0).sum())
+            err = of_max(y, want)
+            moe_checks[f"cf_{cf}"] = {
+                "capacity": cap, "dropped": int(dropped),
+                "numpy_recount": recount, "of_max_y": err, "s": wall,
+                "same_top_k": bool(torch.equal(idx, experts))}
+            if (not err <= MOE_TOL or int(dropped) != recount
+                    or (cf == 8.0 and recount)):
+                problems.append(f"qwen3 moe_ffn cf {cf}: "
+                                f"{moe_checks[f'cf_{cf}']}")
+    del layer, moe_p, x, y, want
+    part_done("qwen3_serve_moe")
+    tcfg = dataclasses.replace(qcfg, n_layers=MOE_LAYERS[1])
+    params = lm_params(tcfg, dev, 23)
+    t, lab = synthetic.lm_batch(tcfg, 1, LM_TRAIN[2], seed=SEED + 5,
+                                device=dev)
+    ocfg16 = dataclasses.replace(ocfg, moment_dtype="bfloat16")
+    (_, _, m), wall = sync_time(lambda: train_steps.lm_train_step(
+        tcfg, ocfg16)(params, opt_mod.init(ocfg16, params), t, lab))
+    loss = float(m["loss"])
+    if not abs(loss - init_loss(qcfg)) <= 0.5:
+        problems.append(f"qwen3 train loss {loss} (at init "
+                        f"{init_loss(qcfg)})")
+    out["qwen3_moe"] = {"serve": res, "moe_ffn": moe_checks,
+                        "train": {"layers": MOE_LAYERS[1], "batch": 1,
+                                  "seq": LM_TRAIN[2],
+                                  "n_params": tcfg.n_params(),
+                                  "optimizer": "adamw, bfloat16 moments",
+                                  "loss": loss,
+                                  "init_loss": init_loss(qcfg),
+                                  "step_s": wall}}
+    del params, t, lab, m
+    part_done("qwen3_train")
+
+    # -- (e) gemma-7b and minitron-4b (2 layers), arctic-480b reduced -----
+    others = {}
+    for seed, mod in ((25, gemma_7b), (26, minitron_4b)):
+        c = dataclasses.replace(mod.CONFIG, n_layers=2)
+        params16 = lm_params(c, dev, seed, torch.bfloat16)
+        prompt = synthetic.lm_batch(c, 1, OTHER_PREFILL, seed=SEED + seed,
+                                    device=dev)[0]
+        res = lm_serve(c, params16, prompt, OTHER_DECODE)
+        res.update(layers=2, n_params=c.n_params())
+        if not (res["finite"] and res["tokens_in_vocab"]):
+            problems.append(f"{c.name} serving: not finite or bad tokens")
+        others[c.name] = res
+        del params16, prompt
+    acfg = arctic_480b.reduced()
+    params = lm_params(acfg, dev, 27, torch.bfloat16)
+    sgd16 = opt_mod.OptimizerConfig(name="sgd", moment_dtype="bfloat16",
+                                    lr=LM_LR, warmup_steps=0)
+    t, lab = synthetic.lm_batch(acfg, 2, acfg.max_seq_len, seed=SEED + 6,
+                                device=dev)
+    (newp, st, m), wall = sync_time(lambda: train_steps.lm_train_step(
+        acfg, sgd16)(params, opt_mod.init(sgd16, params), t, lab))
+    res = lm_serve(acfg, params, t, 4)
+    arctic_ok = (math.isfinite(float(m["loss"])) and res["finite"]
+                 and all(v.dtype == torch.bfloat16 for v in newp.values())
+                 and all(v.dtype == torch.bfloat16 for v in st.m.values()))
+    if not arctic_ok:
+        problems.append("arctic reduced: train step or prefill failed")
+    others["arctic-smoke"] = {"train_loss": float(m["loss"]),
+                              "train_step_s": wall, "serve": res}
+    out["others"] = others
+    del params, newp, st, t, lab
+    part_done("others")
+
+    # -- (f) block-sparse attention over B2SR block masks -----------------
+    nb, bs = BS_SEQ // BS_BLOCK, BS_BLOCK
+    rows, cols = blockmask.local_strided_pattern(nb, window=4, stride=8)
+    w = int(np.bincount(rows).max())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    q, k, v = (torch.randn((1, BS_SEQ, cfg.n_heads, cfg.head_dim),
+                           generator=gen, device=dev) for _ in range(3))
+    ids, bsa = {}, {}
+    for td in BS_TILE_DIMS:
+        _, ell = blockmask.pattern_to_b2sr(rows, cols, nb, td, device=dev)
+        ids[td] = blockmask.block_lists_from_ell(ell, w)
+        bsa[td] = sync_time(lambda: blockmask.block_sparse_attention(
+            q, k, v, ids[td], bs))
+    block = torch.zeros((nb, nb), dtype=torch.bool, device=dev)
+    block[torch.as_tensor(rows, device=dev), torch.as_tensor(cols,
+                                                             device=dev)] = True
+    listed = {tuple(sorted(int(j) for j in r if j >= 0))
+              for r in ids[BS_TILE_DIMS[0]].cpu().tolist()}
+
+    def dense_masked():
+        el = (block[:, None, :, None].expand(nb, bs, nb, bs)
+              .reshape(BS_SEQ, BS_SEQ)
+              & torch.tril(torch.ones((BS_SEQ, BS_SEQ), dtype=torch.bool,
+                                      device=dev)))
+        res = torch.empty_like(q)
+        for h in range(cfg.n_heads):
+            sc = (q[0, :, h] @ k[0, :, h].T) / math.sqrt(cfg.head_dim)
+            res[0, :, h] = torch.softmax(torch.where(el, sc, -1e30),
+                                         -1) @ v[0, :, h]
+        return res
+
+    want, dense_s = sync_time(dense_masked)
+    bs_out = {"seq": BS_SEQ, "block": bs, "n_blocks": nb, "max_blocks": w,
+              "heads": cfg.n_heads, "head_dim": cfg.head_dim,
+              "dense_s": dense_s,
+              "score_blocks_computed_share": nb * w / nb ** 2,
+              "score_blocks_listed_share": len(rows) / nb ** 2,
+              "of_causal_blocks": len(rows) / (nb * (nb + 1) / 2)}
+    if not torch.equal(ids[BS_TILE_DIMS[0]], ids[BS_TILE_DIMS[1]]):
+        problems.append("block lists differ between tile dims")
+    if len(listed) != nb:
+        problems.append("block lists: a row repeated")
+    for td, (got, wall) in bsa.items():
+        err = float((got - want).abs().max())
+        close = bool(torch.allclose(got, want, rtol=BS_TOL, atol=BS_TOL))
+        bs_out[f"t{td}"] = {"s": wall, "max_abs_diff": err, "close": close}
+        if not close:
+            problems.append(f"block_sparse_attention t {td}: {err}")
+    out["block_sparse"] = bs_out
+    del q, k, v, want, bsa, block
+    part_done("block_sparse")
+
+    emit({"phase": "lm", "ok": not problems, "problems": problems[:10],
+          "peak_device_bytes": peaks,
+          "phase_peak_device_bytes": max(peaks.values()),
+          "profile": prof, "phase_s": time.perf_counter() - t_phase,
+          "reduced": [
+              f"phi4-mini-3.8b prefill_32k at batch 1, not 32 (its KV "
+              f"cache: 4.30 GB at batch 1, 137 GB at 32); decode_32k's "
+              f"context at batch 1, not 128, {LM_DECODE} steps",
+              f"phi4-mini-3.8b training: {LM_TRAIN[0]} of 32 layers, "
+              f"train_4k's {LM_TRAIN[2]} tokens at batch {LM_TRAIN[1]}, not "
+              f"256; {LM_TRAIN_STEPS} steps on one batch",
+              f"qwen3-moe-30b-a3b: {MOE_LAYERS[0]} of 48 layers serving "
+              f"({MOE_PREFILL} prompt tokens, {MOE_DECODE} decode steps), "
+              f"{MOE_LAYERS[1]} training (one step of {LM_TRAIN[2]} "
+              "tokens, AdamW's moments in bfloat16: float32 moments and "
+              "the update's new copies of 1.87 B parameters peaked at "
+              "64.9 GB), one layer's moe_ffn at float32 on "
+              f"{MOE_CHECK_TOKENS} tokens",
+              f"gemma-7b and minitron-4b: 2 layers, a {OTHER_PREFILL}-token "
+              f"prefill and {OTHER_DECODE} decode steps",
+              "arctic-480b at its reduced config (one full-width layer is "
+              "13.6 B parameters, 27 GB in bfloat16)",
+              "random weights and tokens from seeds"],
+          "card": card_line(), **out})
+    if problems:
+        fail("lm", "; ".join(problems[:5]))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--scale", type=int, default=SCALE,
@@ -4081,6 +4593,13 @@ def main() -> int:
     fam_launches = phase_families(g, adj)
     spmm_rows[1]["launches"] += fam_launches
     spmm_rows[1]["families_launches"] = fam_launches
+    # the graphs, the plans over them and the gnn phase's served models
+    # (12 GB of gcn-cora features) end with the last graph phase
+    from repro_torch.engine import DEFAULT_PLANNER, queries
+    DEFAULT_PLANNER.clear()
+    queries._GNN_MODELS.clear()
+    del g, adj, road, first, ms_auto
+    phase_lm()
 
     print(card_line(), flush=True)
     emit({"kernels": table})

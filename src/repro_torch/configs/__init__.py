@@ -1,19 +1,28 @@
 """Model configurations the port runs (its own copies: no import of the
 reference's ``repro.configs``) and the architecture registry: ``--arch
-<id>`` → config and shape ids, over the four GNN families.
+<id>`` → config and shape ids, over the five LM configs and the four GNN
+families.
 
-The reference's LM and DIN ids are known here but not ported: asking
-for one raises ``NotImplementedError`` (ROADMAP Queue 1 item 10).
+The reference's DIN id is known here but not ported: asking for it
+raises ``NotImplementedError`` (ROADMAP Queue 1 item 10.2).
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, Union
 
 from repro_torch.configs.gnn import GNNConfig  # noqa: F401
+from repro_torch.configs.lm import MoEConfig, TransformerConfig  # noqa: F401
+
+ArchConfig = Union[TransformerConfig, GNNConfig]
 
 _MODULES: Dict[str, str] = {
+    "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
+    "gemma-7b": "repro_torch.configs.gemma_7b",
+    "minitron-4b": "repro_torch.configs.minitron_4b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
     "egnn": "repro_torch.configs.egnn",
     "gcn-cora": "repro_torch.configs.gcn_cora",
     "gatedgcn": "repro_torch.configs.gatedgcn",
@@ -21,33 +30,40 @@ _MODULES: Dict[str, str] = {
 }
 
 #: the reference's ids whose families the port has not yet
-_NOT_PORTED = ("phi4-mini-3.8b", "gemma-7b", "minitron-4b",
-               "qwen3-moe-30b-a3b", "arctic-480b", "din")
+_NOT_PORTED = ("din",)
 
 ARCH_IDS = tuple(_MODULES)
 
-# shape ids of the GNN families (the reference's assignment table)
+# shape ids per family (the reference's assignment table)
+LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+
+# long_500k skipped for the pure full-attention LM archs
+SKIPPED_CELLS = tuple(
+    (a, "long_500k")
+    for a in ("phi4-mini-3.8b", "gemma-7b", "minitron-4b",
+              "qwen3-moe-30b-a3b", "arctic-480b"))
 
 
 def _module(arch_id: str):
     if arch_id in _NOT_PORTED:
         raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP Queue 1 item 10); "
-            f"ported: {ARCH_IDS}")
+            f"arch {arch_id!r} is not ported yet (ROADMAP Queue 1 item "
+            f"10.2); ported: {ARCH_IDS}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; available: {ARCH_IDS}")
     return importlib.import_module(_MODULES[arch_id])
 
 
-def get_config(arch_id: str) -> GNNConfig:
+def get_config(arch_id: str) -> ArchConfig:
     return _module(arch_id).CONFIG
 
 
-def get_reduced_config(arch_id: str) -> GNNConfig:
+def get_reduced_config(arch_id: str) -> ArchConfig:
     return _module(arch_id).reduced()
 
 
 def shapes_for(arch_id: str) -> tuple:
-    _module(arch_id)
+    if isinstance(get_config(arch_id), TransformerConfig):
+        return LM_SHAPES
     return GNN_SHAPES

@@ -28,7 +28,9 @@ GCN's), and ``gnn_model_from_reference`` a served model's ``((w, b),
 ``engine.queries.register_gnn_model``; ``opt_state_from_reference``
 turns the reference optimizer's state for those weights into the port's
 ``training.optimizer.OptState``, so both packages resume from one
-mid-run state.
+mid-run state. ``lm_state_from_reference`` does the same for a
+transformer's tree (the stacked ``[L, …]`` layers unstacked into
+``layers.{i}``).
 """
 
 from __future__ import annotations
@@ -265,3 +267,49 @@ def gnn_model_from_reference(params, features,
     dev = resolve_device(device)
     return {"params": tuple((_f32(w, dev), _f32(b, dev)) for w, b in params),
             "features": _f32(features, dev), "device": dev}
+
+
+#: the LM tree's matrices kept as ``nn.Linear``'s ``[out, in]`` (the MoE
+#: experts' ``[E, …]`` stacks keep the reference's layout)
+_LM_LINEAR = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "router",
+              "dense_gate", "dense_up", "dense_down", "lm_head")
+
+
+def _lm_entries(tree, prefix: str, dev, in_moe: bool = False):
+    out = {}
+    for k, a in tree.items():
+        if isinstance(a, Mapping):
+            out.update(_lm_entries(a, f"{prefix}{k}.", dev, k == "moe"))
+        elif k in _LM_LINEAR and not (in_moe and k in ("w_gate", "w_up",
+                                                       "w_down")):
+            out[f"{prefix}{k}.weight"] = _f32(a, dev).T.contiguous()
+        else:
+            out[prefix + k] = _f32(a, dev)
+    return out
+
+
+def lm_state_from_reference(cfg, params, device: DeviceLike = None
+                            ) -> Dict[str, torch.Tensor]:
+    """The reference transformer's ``init_params(cfg, key)`` tree (numpy)
+    as the ``state_dict`` of ``models.transformer.Transformer`` on
+    ``device``, float32: ``params["layers"]`` (stacked on a leading
+    ``L`` axis, or a list of per-layer trees) unstacked into
+    ``layers.{i}.…``; every projection transposed into ``.weight``; the
+    norms' ``.scale`` and the experts' ``w_gate``/``w_up``/``w_down`` as
+    they are. A tied model has no ``lm_head``: its head is ``embed``."""
+    dev = resolve_device(device)
+    layers = params["layers"]
+    if isinstance(layers, Mapping):
+        layers = [_index_tree(layers, i) for i in range(cfg.n_layers)]
+    out = {"embed": _f32(params["embed"], dev)}
+    for i, lp in enumerate(layers):
+        out.update(_lm_entries(lp, f"layers.{i}.", dev))
+    rest = {k: v for k, v in params.items()
+            if k in ("final_norm", "lm_head")}
+    out.update(_lm_entries(rest, "", dev))
+    return out
+
+
+def _index_tree(tree, i: int):
+    return {k: _index_tree(v, i) if isinstance(v, Mapping)
+            else np.asarray(v)[i] for k, v in tree.items()}

@@ -1,7 +1,9 @@
-"""Synthetic GNN batches (numpy, seeded), the port's twin of the GNN
-part of ``repro.data.synthetic``: ``full_graph_batch``, ``rmat_batch``,
-``minibatch_batch`` (the neighbour-sampled ``minibatch_lg`` shape) and
-``molecule_batch`` (a disjoint union of small graphs, graph labels).
+"""Synthetic token streams and GNN batches (numpy, seeded), the port's
+twin of the LM and GNN parts of ``repro.data.synthetic``: ``lm_batch``
+and ``TokenStream`` (the training data pipeline, with ``state`` and
+``restore``), ``full_graph_batch``, ``rmat_batch``, ``minibatch_batch``
+(the neighbour-sampled ``minibatch_lg`` shape) and ``molecule_batch`` (a
+disjoint union of small graphs, graph labels).
 
 The draws are the reference's, in its order, from one
 ``np.random.default_rng(seed)`` (the graph from the pattern's own seeded
@@ -27,12 +29,59 @@ import numpy as np
 import torch
 
 from repro_torch.configs.gnn import GNNConfig
+from repro_torch.configs.lm import TransformerConfig
 from repro_torch.core.graphblas import GraphMatrix
 from repro_torch.data import graphs as graph_gen
 from repro_torch.data.neighbor_sampler import sample
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.gnn.common import GraphBatch
 
+
+# ---------------------------------------------------------------------------
+# LM token streams
+# ---------------------------------------------------------------------------
+
+def lm_batch(cfg: TransformerConfig, batch: int, seq: int, seed: int = 0,
+             device: DeviceLike = None):
+    """``(tokens, labels)`` int32 ``[batch, seq]`` on ``device``: one
+    ``[batch, seq + 1]`` draw of ``default_rng(seed)``, shifted by one."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq + 1), dtype=np.int32)
+    return (torch.from_numpy(tokens[:, :-1].copy()).to(dev),
+            torch.from_numpy(tokens[:, 1:].copy()).to(dev))
+
+
+class TokenStream:
+    """Infinite deterministic token stream (the data pipeline for
+    training): batch ``i`` is ``lm_batch`` of seed ``seed + i``."""
+
+    def __init__(self, cfg: TransformerConfig, batch: int, seq: int,
+                 seed: int = 0, device: DeviceLike = None):
+        self.cfg, self.batch, self.seq, self.seed = cfg, batch, seq, seed
+        self.device = resolve_device(device)
+        self.step = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        out = lm_batch(self.cfg, self.batch, self.seq,
+                       seed=self.seed + self.step, device=self.device)
+        self.step += 1
+        return out
+
+    def state(self):
+        return {"step": self.step, "seed": self.seed}
+
+    def restore(self, state):
+        self.step = int(state["step"])
+        self.seed = int(state["seed"])
+
+
+# ---------------------------------------------------------------------------
+# GNN batches
+# ---------------------------------------------------------------------------
 
 def full_graph_batch(cfg: GNNConfig, n_nodes: int, pattern: str = "hybrid",
                      seed: int = 0, with_b2sr: Optional[bool] = None,

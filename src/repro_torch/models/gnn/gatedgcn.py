@@ -35,7 +35,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.gnn import GNNConfig
 from repro_torch.core import partition as partition_mod
@@ -43,7 +42,7 @@ from repro_torch.core.mesh import ShardMesh, make_mesh
 from repro_torch.models.gnn.common import (GraphBatch, _segment_sum,
                                            gather, graph_ce_loss,
                                            graph_pool, node_ce_loss)
-from repro_torch.nn import Dense, LayerNorm
+from repro_torch.nn import Dense, LayerNorm, remat
 
 _MSG_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -183,27 +182,13 @@ class GatedGCN(nn.Module):
         msg_dtype = _MSG_DTYPES[cfg.message_dtype]
         for layer in self.layers:
             if cfg.remat:
-                h, e = _remat(layer, h, e, batch, slots, msg_dtype)
+                h, e = remat(layer, h, e, extra=(batch, slots, msg_dtype))
             else:
                 h, e = layer(h, e, batch, slots, msg_dtype)
         if pooled:
             h = graph_pool(h, batch.graph_ids, batch.n_graphs,
                            batch.node_mask)
         return self.head(h)
-
-
-def _remat(layer: GatedGCNLayer, h, e, batch, slots, msg_dtype):
-    """``layer(h, e, …)`` under activation checkpointing. The parameters
-    go in as inputs, so the recomputation in the backward runs over the
-    same tensors even when the layer was called through
-    ``functional_call`` (whose substitution has ended by then)."""
-    names, vals = zip(*layer.named_parameters())
-
-    def fn(h, e, *vals):
-        return functional_call(layer, dict(zip(names, vals)),
-                               (h, e, batch, slots, msg_dtype))
-
-    return checkpoint(fn, h, e, *vals, use_reentrant=False)
 
 
 def loss_fn(model: GatedGCN, batch: GraphBatch):

@@ -1,4 +1,4 @@
-"""Layers the GNN families share, the port of ``repro.nn``.
+"""Layers the GNN and LM families share, the port of ``repro.nn``.
 
 The reference keeps parameters as nested dicts and layers as pure
 functions; here they are ``torch.nn`` modules whose attribute names are
@@ -9,23 +9,32 @@ transposed as ``nn.Linear``'s ``weight``, see ``repro_torch.convert``).
 
 Types promote as JAX promotes them: a :class:`Dense` computes in the
 wider of its input's and its weight's dtype (a bfloat16 message times a
-float32 weight is a float32 product), and :class:`LayerNorm` takes its
-statistics in float32 and returns the input's dtype.
+float32 weight is a float32 product), and :class:`LayerNorm` and
+:class:`RMSNorm` take their statistics in float32 and return the
+input's dtype. The LM layers write ``x @ w.astype(x.dtype)`` instead:
+:class:`CastDense` casts its float32 weight to the input's dtype, so a
+bfloat16 activation gives a bfloat16 product.
 
 :func:`reset_parameters` draws the weights with the reference's scheme
-(``N(0, 1/d_in)`` weights, zero biases, unit norm scales) from an
-explicit ``torch.Generator``. ``rms_norm`` and ``embed_init`` belong to
-the LM families (ROADMAP Queue 1 item 10).
+(``N(0, 1/d_in)`` weights, or ``N(0, 1)·init_scale`` where a
+:class:`CastDense` sets one; zero biases; unit LayerNorm scales, zero
+RMSNorm scales) from an explicit ``torch.Generator``; a module with a
+``reset_own(generator)`` method (the LM's embedding, the MoE experts)
+draws its own tensors there. :func:`embed_init` is the reference's
+``N(0, 0.02²)`` embedding. :func:`remat` is the families' per-layer
+activation checkpointing.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Mapping, Sequence, Union
+from typing import Callable, Mapping, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 ParamsLike = Union[nn.Module, Mapping[str, torch.Tensor]]
 
@@ -77,22 +86,85 @@ class LayerNorm(nn.Module):
         return (y * self.scale + self.bias).to(x.dtype)
 
 
+class CastDense(nn.Linear):
+    """``x @ w.astype(x.dtype)`` without a bias (the LM's projections):
+    the weight is cast to the input's dtype. ``init_scale`` replaces
+    ``1/√d_in`` as the standard deviation of the initial weight (the MoE
+    router's 0.02)."""
+
+    def __init__(self, d_in: int, d_out: int,
+                 init_scale: Optional[float] = None):
+        super().__init__(d_in, d_out, bias=False)
+        self.init_scale = init_scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype))
+
+
+class RMSNorm(nn.Module):
+    """``x/√(mean(x²) + eps) · (1 + scale)`` over the last axis, in
+    float32, returned in ``x``'s dtype; ``scale`` starts at zero."""
+
+    def __init__(self, d: int, eps: float = 1e-6):
+        super().__init__()
+        self.scale = nn.Parameter(torch.zeros(d))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + self.eps)
+        return (y * (1.0 + self.scale.float())).to(x.dtype)
+
+
+def embed_init(vocab: int, d: int, generator: torch.Generator,
+               device=None, dtype: torch.dtype = torch.float32
+               ) -> torch.Tensor:
+    """``N(0, 0.02²)`` of shape ``[vocab, d]``, drawn from ``generator``."""
+    return torch.randn((vocab, d), generator=generator, device=device,
+                       dtype=dtype) * 0.02
+
+
 @torch.no_grad()
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """The reference's initial values, drawn in module order from
     ``generator`` (on the parameters' device): every :class:`Dense`
-    ``weight ~ N(0, 1/d_in)`` and ``bias = 0``; every :class:`LayerNorm`
-    ``scale = 1``, ``bias = 0``."""
+    ``weight ~ N(0, 1/d_in)`` (a :class:`CastDense` with ``init_scale``:
+    ``N(0, init_scale²)``) and ``bias = 0``; every :class:`LayerNorm`
+    ``scale = 1``, ``bias = 0``; every :class:`RMSNorm` ``scale = 0``;
+    and whatever a module's own ``reset_own(generator)`` draws."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             w = torch.randn(m.weight.shape, generator=generator,
                             device=m.weight.device, dtype=m.weight.dtype)
-            m.weight.copy_(w / math.sqrt(m.in_features))
+            scale = getattr(m, "init_scale", None)
+            m.weight.copy_(w / math.sqrt(m.in_features) if scale is None
+                           else w * scale)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, LayerNorm):
             m.scale.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, RMSNorm):
+            m.scale.zero_()
+        if hasattr(m, "reset_own"):
+            m.reset_own(generator)
+
+
+def remat(module: nn.Module, *inputs, extra: tuple = ()):
+    """``module(*inputs, *extra)`` under activation checkpointing
+    (``torch.utils.checkpoint``, non-reentrant): the backward recomputes
+    it instead of keeping its activations. The module's parameters go in
+    as inputs, so the recomputation runs over the same tensors even when
+    the module was called through ``functional_call`` (whose
+    substitution has ended by then)."""
+    names, vals = zip(*module.named_parameters())
+    n = len(inputs)
+
+    def fn(*xs):
+        return functional_call(module, dict(zip(names, xs[n:])),
+                               (*xs[:n], *extra))
+
+    return checkpoint(fn, *inputs, *vals, use_reentrant=False)
 
 
 def _leaves(params: ParamsLike):

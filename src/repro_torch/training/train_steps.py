@@ -1,6 +1,7 @@
-"""Train and inference step builders for the GNN families, the port of
-``repro.training.train_steps``'s ``gnn_train_step``, ``gnn_infer_step``,
-``graphcast_train_step`` and ``graphcast_infer_step``.
+"""Train and inference steps for the LM and GNN families, the
+port of ``repro.training.train_steps``'s ``lm_train_step``,
+``lm_prefill_step``, ``lm_decode_step``, ``gnn_train_step``,
+``gnn_infer_step``, ``graphcast_train_step`` and ``graphcast_infer_step``.
 
 A step is a function of the parameters (a dict ``name -> tensor``, the
 model's ``named_parameters``), the optimizer state and a batch. The model
@@ -9,9 +10,11 @@ is built once on the ``meta`` device and run over the given tensors with
 One train step runs the forward, ``autograd.grad`` (on ``b2sr_cuda`` the
 GCN aggregation's gradient is ``spmm_dense`` over Aᵀ) and
 ``optimizer.update``, and returns ``(params, opt_state, metrics)`` with
-``loss``, ``lr`` and ``grad_norm`` among the metrics. Families: gcn,
-gatedgcn and egnn through ``gnn_*``, graphcast through ``graphcast_*``;
-the LM and DIN steps wait for ROADMAP Queue 1 item 10.
+``loss``, ``lr`` and ``grad_norm`` among the metrics. Families: the
+transformers through ``lm_*`` (``grad_accum`` microbatches: the mean of
+their gradients), gcn, gatedgcn and egnn through ``gnn_*``, graphcast
+through ``graphcast_*``; the DIN steps wait for ROADMAP Queue 1 item
+10.2.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from torch import nn
 from torch.func import functional_call
 
 from repro_torch.configs.gnn import GNNConfig
+from repro_torch.configs.lm import TransformerConfig
+from repro_torch.models import transformer as T
 from repro_torch.models.gnn import egnn, gatedgcn, gcn, graphcast
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training.optimizer import Tensors
@@ -35,7 +40,8 @@ _GNN_MODULES = {"gcn": (gcn.GCN, gcn.loss_fn),
 class _Loss(nn.Module):
     """``loss(model, *batch)`` as a module over ``model``'s parameters
     (prefixed ``model.``), so ``functional_call`` binds every parameter a
-    loss reads, the heads applied outside ``forward`` included."""
+    loss reads, the heads applied outside ``forward`` included (and any
+    other function of the model: the LM's prefill and decode)."""
 
     def __init__(self, model: nn.Module, loss: Callable):
         super().__init__()
@@ -60,7 +66,8 @@ def _family(cfg: GNNConfig, mesh=None):
 
 
 def _bound_loss(model: nn.Module, loss: Callable) -> Callable:
-    """``loss_fn(params, *batch)`` over the parameter dict."""
+    """``loss_fn(params, *batch)`` over the parameter dict (``loss`` may
+    be any function of the model and the batch)."""
     wrapper = _Loss(model, loss)
 
     def loss_fn(params: Tensors, *batch):
@@ -95,6 +102,86 @@ def _apply(opt_cfg: opt_mod.OptimizerConfig, loss_fn: Callable,
         opt_cfg, grads, opt_state, params)
     return new_params, new_state, dict(metrics, loss=loss, **opt_metrics)
 
+
+# ---------------------------------------------------------------------------
+# LM transformers
+# ---------------------------------------------------------------------------
+
+def _lm_model(cfg: TransformerConfig) -> T.Transformer:
+    with torch.device("meta"):
+        return T.Transformer(cfg)
+
+
+def lm_loss_fn(cfg: TransformerConfig) -> Callable:
+    """``loss_fn(params, tokens, labels) -> (loss, {"ce", "aux"})``."""
+    return _bound_loss(_lm_model(cfg), T.loss_fn)
+
+
+def lm_train_step(cfg: TransformerConfig, opt_cfg: opt_mod.OptimizerConfig,
+                  grad_accum: int = 1) -> Callable:
+    """``step(params, opt_state, tokens, labels) -> (params, opt_state,
+    metrics)``; with ``grad_accum > 1`` the batch is cut into that many
+    microbatches of consecutive rows, the update takes the mean of their
+    gradients and ``loss`` is the mean of their losses."""
+    loss_fn = lm_loss_fn(cfg)
+
+    def step(params: Tensors, opt_state: opt_mod.OptState, tokens, labels):
+        if grad_accum == 1:
+            return _apply(opt_cfg, loss_fn, params, opt_state, tokens,
+                          labels)
+        B = tokens.shape[0]
+        if B % grad_accum:
+            raise ValueError(f"batch {B} is not a multiple of grad_accum "
+                             f"{grad_accum}")
+        mb = B // grad_accum
+        grads = {k: torch.zeros(p.shape, dtype=torch.float32,
+                                device=p.device) for k, p in params.items()}
+        loss_sum = 0.0
+        for i in range(grad_accum):
+            rows = slice(i * mb, (i + 1) * mb)
+            (loss, _), g = value_and_grad(loss_fn, params, tokens[rows],
+                                          labels[rows])
+            for k in grads:
+                grads[k] += g[k]
+            loss_sum = loss_sum + loss
+            del g
+        grads = {k: g / grad_accum for k, g in grads.items()}
+        new_params, new_state, opt_metrics = opt_mod.update(
+            opt_cfg, grads, opt_state, params)
+        return new_params, new_state, dict(loss=loss_sum / grad_accum,
+                                           **opt_metrics)
+
+    return step
+
+
+def lm_prefill_step(cfg: TransformerConfig) -> Callable:
+    """``step(params, tokens) -> (logits [B, 1, V], (cache_k, cache_v))``:
+    the prompt's keys and values and the last position's logits."""
+    run = _bound_loss(_lm_model(cfg),
+                      lambda m, tokens: T.prefill(m, tokens, last_only=True))
+
+    @torch.no_grad()
+    def step(params: Tensors, tokens):
+        return run(params, tokens)
+
+    return step
+
+
+def lm_decode_step(cfg: TransformerConfig) -> Callable:
+    """``step(params, token, cache_k, cache_v, cache_len) -> (logits,
+    cache_k, cache_v)`` (the caches written in place and returned)."""
+    run = _bound_loss(_lm_model(cfg), T.decode_step)
+
+    @torch.no_grad()
+    def step(params: Tensors, token, cache_k, cache_v, cache_len: int):
+        return run(params, token, cache_k, cache_v, cache_len)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# GNN
+# ---------------------------------------------------------------------------
 
 def gnn_loss_fn(cfg: GNNConfig, mesh=None) -> Callable:
     """``loss_fn(params, batch) -> (loss, {"ce": loss})`` of ``cfg``'s

@@ -10,10 +10,11 @@
     deterministically.
 
 The reference's ``shardings`` (restore onto another mesh) waits for the
-multi-GPU slice (ROADMAP Queue 1 item 9): a checkpoint is restored onto
-the device the state's parameters are on. Its data-stream position
-(``data.state()`` / ``restore()``) waits for a stream that has one (the
-token streams, item 10): the full-graph GNN batch is the same each step.
+sharding rules (ROADMAP Queue 1 item 10.3): a checkpoint is restored
+onto the device the state's parameters are on. A stream with
+``state()`` / ``restore()`` (``data.synthetic.TokenStream``) has its
+position saved with each checkpoint and restored with it, so a resumed
+run reads the batches the uninterrupted one would have.
 """
 
 from __future__ import annotations
@@ -66,10 +67,12 @@ def run(tcfg: TrainerConfig, step_fn: Callable, state: TrainState,
         if latest is not None and latest > state.step:
             dev = next(iter(state.params.values())).device
             tree = {"params": state.params, "opt": state.opt_state}
-            restored, _ = ckpt_mod.restore(tcfg.ckpt_dir, latest, tree,
-                                           device=dev)
+            restored, extra = ckpt_mod.restore(tcfg.ckpt_dir, latest, tree,
+                                               device=dev)
             state = TrainState(params=restored["params"],
                                opt_state=restored["opt"], step=latest)
+            if hasattr(data, "restore") and "data" in extra:
+                data.restore(extra["data"])
             log.info("restored checkpoint at step %d", latest)
 
     while state.step < tcfg.total_steps:
@@ -95,9 +98,10 @@ def run(tcfg: TrainerConfig, step_fn: Callable, state: TrainState,
         if tcfg.log_every and state.step % tcfg.log_every == 0:
             log.info("step %d loss %.4f (%.0f ms)", state.step, loss, dt * 1e3)
         if tcfg.ckpt_dir and state.step % tcfg.ckpt_every == 0:
+            extra = {"data": data.state()} if hasattr(data, "state") else {}
             ckpt_mod.save(tcfg.ckpt_dir, state.step,
                           {"params": state.params, "opt": state.opt_state},
-                          keep=tcfg.keep_ckpts)
+                          extra=extra, keep=tcfg.keep_ckpts)
 
     return {"final_step": state.step, "losses": history,
             "stragglers": stragglers, "state": state}

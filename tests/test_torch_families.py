@@ -716,13 +716,18 @@ def test_spmm_b2sr_shardmap_is_bitwise():
 
 @needs_reference
 def test_registry_matches_reference():
-    assert set(configs.ARCH_IDS) < set(rconfigs.ARCH_IDS)
+    assert set(rconfigs.ARCH_IDS) - set(configs.ARCH_IDS) == {"din"}
     assert configs.GNN_SHAPES == rconfigs.GNN_SHAPES
+    assert configs.LM_SHAPES == rconfigs.LM_SHAPES
+    assert configs.SKIPPED_CELLS == rconfigs.SKIPPED_CELLS
     for arch in configs.ARCH_IDS:
         for get in ("get_config", "get_reduced_config"):
             assert (dataclasses.asdict(getattr(configs, get)(arch))
                     == dataclasses.asdict(getattr(rconfigs, get)(arch))), arch
         assert configs.shapes_for(arch) == rconfigs.shapes_for(arch)
+    for arch in ("phi4-mini-3.8b", "gemma-7b", "minitron-4b",
+                 "qwen3-moe-30b-a3b", "arctic-480b"):
+        assert configs.shapes_for(arch) == configs.LM_SHAPES
     for arch in set(rconfigs.ARCH_IDS) - set(configs.ARCH_IDS):
         with pytest.raises(NotImplementedError, match="item 10"):
             configs.get_config(arch)
