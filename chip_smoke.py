@@ -15,9 +15,10 @@ BitGNN inference (``gnn_infer`` at gcn-cora's widths), the serving front
 end (``GraphQueryServer`` with its telemetry, warm restart and injected
 faults), GCN training (``train_steps.gnn_train_step`` and the trainer
 at the same widths) and the sharded rows over a mesh of slots on the
-card (``GraphMatrix.shard``), the other GNN families and the LM family
+card (``GraphMatrix.shard``), the other GNN families, the LM family
 (five configs at full width, block-sparse attention over B2SR block
-masks) through the port's entry points. Each phase prints one JSON line;
+masks) and the recsys family (DIN and the int8 compressed psum) through
+the port's entry points. Each phase prints one JSON line;
 a failed phase exits non-zero.
 
   1. kernels: each kernel against its plain PyTorch version
@@ -291,6 +292,39 @@ a failed phase exits non-zero.
      rtol and atol 2e-5 of a dense masked attention computed head by
      head; both walls and the share of score blocks computed. Prints
      peak device memory per part, the cuts (``reduced``) and the card.
+ 24. din: the recsys family (no hand kernel: the embedding lookups, the
+     attention MLP and the compressed psum are PyTorch operations, as
+     the reference's are ``jnp``) at DIN's published widths
+     (arXiv:1706.06978: d 18, L 100, attention MLP 80-40, MLP 200-80,
+     1,000,000 items, 10,000 categories, 8 user fields of 100,000; 20.05
+     M parameters), after the LM's tensors are freed; random seeded
+     weights from the port's own initialisation, checks with TF32 off.
+     (a) The float32 forward of a ``serve_p99`` batch within 1e-5 of max
+     |logit| of a float64 forward of the same weights; ``score_candidates``
+     of one user over 10,007 candidates in blocks of 4,096 equal to the
+     forward of that user with each candidate as target within 1e-5 of
+     max |score|; the loss and every gradient of a batch of 4,096 within
+     1e-4 of max |g| of a float64 run. (b) The reference's four shapes
+     (``launch/specs.py``): ``train_batch`` (4 ``din_train_step``s at
+     65,536 on one batch, AdamW at lr 1e-3 from step 1: losses finite,
+     step 4 below step 1; median wall of steps 2-4), ``serve_p99`` (60
+     synchronized ``din_serve_step`` calls at 512: p50/p99),
+     ``serve_bulk`` (one call at 262,144 after a warm-up) and
+     ``retrieval_cand`` (``din_retrieval_step``, 1 user × 1,000,000
+     candidates, after a warm-up), each beside its bound (the FLOPs of
+     ``launch/specs.py`` over 67 TFLOP/s or the bytes it must move over
+     3.35 TB/s), its peak device memory and its attention features'
+     bytes; one train step and one ``serve_p99`` call under
+     torch.profiler. (c) ``launch.train --arch din --full-config --batch
+     4096 --steps 2`` through its ``main``: losses finite. (d)
+     ``compressed_psum_tree`` over a mesh of 4 slots of the card, of DIN's
+     gradients from 4 batches of 4,096: sums and residuals equal the
+     same call on the CPU bit for bit, the one-shot error below 0.1 of
+     max |exact sum| per tensor, the error of 4 steps of error feedback
+     (each step's sum and the mean of the sums so far);
+     ``topk_compress`` at 1% equal to the CPU's; its wall beside the
+     exact psum's copies. Prints the cuts (``reduced``: none), the card
+     and the phase's wall.
 
 The kernels phase also holds ``bmm_tc`` and ``spgemm_bbb`` against their
 plain versions on the small graphs at every tile dim (SpGEMM with no
@@ -472,6 +506,22 @@ BS_SEQ, BS_BLOCK = 16384, 128  # lm (f): block-sparse attention
 BS_TILE_DIMS = (8, 32)
 BS_TOL = 2e-5
 BF16_TFLOPS = 989e12           # H100 SXM dense bf16 (data sheet)
+#: din: the reference's four DIN shapes (launch/specs.py DIN_SHAPE_TABLE):
+#: samples, or candidates for the one user of retrieval_cand
+DIN_SIZES = {"train_batch": 65536, "serve_p99": 512, "serve_bulk": 262144,
+             "retrieval_cand": 1_000_000}
+DIN_TRAIN_STEPS = 4            # din: train_batch steps on one batch
+DIN_LR = 1e-3
+DIN_P99_CALLS = 60             # din: serve_p99 calls, each synchronized
+DIN_CANDS = 10007              # din (a): score_candidates check, padded
+DIN_CHUNK = 4096               # score_candidates' default block
+DIN_GRAD_BATCH = 4096          # din (a) gradients, (c) launcher, (d) psum
+DIN_TOL = 1e-5                 # forward vs float64, scores vs forward
+DIN_GRAD_TOL = 1e-4            # gradients vs float64, of max |g|
+DIN_SLOTS = 4                  # din (d): compressed psum's slots
+DIN_PSUM_STEPS = 4             # error feedback steps
+DIN_PSUM_TOL = 0.1             # one-shot error, of max |exact sum|
+DIN_TOPK = 0.01                # topk_compress's k_frac
 #: shard: the kernels the sharded rows launch per shard
 SHARD_KERNELS = ("bmv_bbb_push", "bmv_bbb_pull", "bmv_bff", "bmv_bbf",
                  "bmm_tc", "spgemm_bbb", "spmm_bbb", "spmm_dense",
@@ -4464,6 +4514,319 @@ def phase_lm():
         fail("lm", "; ".join(problems[:5]))
 
 
+def din_params(cfg, dev, seed: int):
+    """DIN's parameters drawn by the port's own seeded initialisation on
+    ``dev``, as named tensors."""
+    import torch
+    from repro_torch import nn as rnn
+    from repro_torch.training import train_steps
+    model = train_steps._din_model(cfg).to_empty(device=dev)
+    rnn.reset_parameters(model, torch.Generator(device=dev).manual_seed(
+        SEED + seed))
+    return {k: v.detach() for k, v in model.named_parameters()}
+
+
+def din_flops(cfg) -> int:
+    """Forward FLOPs of one sample or candidate, the reference's count
+    (``launch/specs.py``): the attention MLP's first two layers over the
+    L positions and the final MLP's first two layers."""
+    d, (a0, a1), (m0, m1) = cfg.embed_dim, cfg.attn_mlp, cfg.mlp
+    attn = 2 * cfg.seq_len * (8 * d * a0 + a0 * a1)
+    return attn + 2 * ((cfg.n_user_feats * d + 4 * d) * m0 + m0 * m1)
+
+
+def din_bytes(params, batch, out_bytes: int, cands=None,
+              train: bool = False) -> int:
+    """The bytes a call must move, each input read once and each output
+    written once: the batch; the table rows its ids reach (the history's
+    unmasked positions, the targets or candidates, the user fields),
+    each distinct row once; the MLPs' weights; the output. A train step
+    reads and writes every parameter and both AdamW moments instead of
+    the rows."""
+    import torch
+    nbytes = sum(t.numel() * t.element_size() for t in batch) + out_bytes
+    if train:
+        return nbytes + 6 * sum(v.numel() * v.element_size()
+                                for v in params.values())
+    items = [batch.hist_items[batch.hist_mask], batch.target_item]
+    cates = [batch.hist_cates[batch.hist_mask], batch.target_cate]
+    if cands is not None:
+        nbytes += sum(c.numel() * c.element_size() for c in cands)
+        items, cates = [items[0], cands[0]], [cates[0], cands[1]]
+    for name, ids in (("item_table", items), ("cate_table", cates),
+                      ("user_table", [batch.user_feats.reshape(-1)])):
+        t = params[name]
+        rows = torch.unique(torch.cat(ids)).numel()
+        nbytes += rows * t.shape[1] * t.element_size()
+    return nbytes + sum(v.numel() * v.element_size()
+                        for k, v in params.items() if "mlp" in k)
+
+
+def exact_psum(grads):
+    """The float32 psum of each named tensor over the slots: copies to
+    the first slot, the sum there, copies back to each slot."""
+    out = [{} for _ in grads]
+    for k in grads[0]:
+        total = grads[0][k]
+        for g in grads[1:]:
+            total = total + g[k].to(total.device)
+        for i, g in enumerate(grads):
+            out[i][k] = total.to(g[k].device)
+    return out
+
+
+def phase_din():
+    """The recsys family at DIN's published widths (see the module doc,
+    phase 24)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import din as din_config
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.recsys.din import DINBatch
+    from repro_torch.training import compression
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_steps
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    problems, out, prof = [], {}, {}
+    out["start_allocated_bytes"] = torch.cuda.memory_allocated()
+    out["tf32"] = bool(torch.backends.cuda.matmul.allow_tf32)
+    if out["tf32"]:
+        problems.append("float32 matmuls run as TF32")
+    cfg = din_config.CONFIG
+    params = din_params(cfg, dev, 40)
+    p64 = {k: v.double() for k, v in params.items()}
+    out["params"] = sum(v.numel() for v in params.values())
+    out["param_bytes"] = sum(v.numel() * v.element_size()
+                             for v in params.values())
+    fwd = din_flops(cfg)
+    feat_bytes = cfg.seq_len * 8 * cfg.embed_dim * 4     # a sample's
+    serve = train_steps.din_serve_step(cfg)
+    retrieve = train_steps.din_retrieval_step(cfg)
+    loss_fn = train_steps.din_loss_fn(cfg)
+
+    def of_max(got, want) -> float:
+        return float((got.double() - want.double()).abs().max()
+                     / want.double().abs().max())
+
+    # -- (a) checks at CONFIG's widths ----------------------------------
+    checks = {}
+    b = synthetic.din_batch(cfg, DIN_SIZES["serve_p99"], seed=SEED + 41,
+                            device=dev)
+    got, want = serve(params, b), serve(p64, b)
+    checks["forward_vs_f64_of_max"] = of_max(got, want)
+    checks["max_abs_logit"] = float(want.abs().max())
+    if not checks["forward_vs_f64_of_max"] <= DIN_TOL:
+        problems.append(f"forward {checks['forward_vs_f64_of_max']} of max "
+                        "|logit| from float64")
+    user = synthetic.din_batch(cfg, 1, seed=SEED + 42, device=dev)
+    rng = np.random.default_rng(SEED + 43)
+
+    def cand_ids(n):
+        return (torch.from_numpy(rng.integers(0, cfg.n_items, n,
+                                              dtype=np.int32)).to(dev),
+                torch.from_numpy(rng.integers(0, cfg.n_cates, n,
+                                              dtype=np.int32)).to(dev))
+
+    ci, cc = cand_ids(DIN_CANDS)
+    scores = retrieve(params, user, ci, cc)[0]
+    n = DIN_CANDS
+    each = DINBatch(user.hist_items.expand(n, -1), user.hist_cates.expand(
+        n, -1), user.hist_mask.expand(n, -1), ci, cc,
+        user.user_feats.expand(n, -1), torch.zeros(n, device=dev))
+    want = serve(params, each)
+    checks["candidates"] = n
+    checks["candidate_blocks"] = -(-n // DIN_CHUNK)
+    checks["scores_vs_forward_of_max"] = of_max(scores, want)
+    if scores.shape != (n,) or not checks["scores_vs_forward_of_max"] \
+            <= DIN_TOL:
+        problems.append(f"score_candidates {checks['scores_vs_forward_of_max']}"
+                        " of max |score| from the forward")
+    b = synthetic.din_batch(cfg, DIN_GRAD_BATCH, seed=SEED + 44, device=dev)
+    (loss, _), grads = train_steps.value_and_grad(loss_fn, params, b)
+    (loss64, _), grads64 = train_steps.value_and_grad(loss_fn, p64, b)
+    checks["loss"], checks["loss_f64"] = float(loss), float(loss64)
+    checks["grads_vs_f64_of_max"] = {
+        k: of_max(grads[k], grads64[k]) for k in grads}
+    worst = max(checks["grads_vs_f64_of_max"].values())
+    if not abs(float(loss) - float(loss64)) <= DIN_TOL * abs(float(loss64)) \
+            or not worst <= DIN_GRAD_TOL:
+        problems.append(f"loss/gradients from float64: {worst} of max |g|")
+    out["checks"] = checks
+    del p64, got, want, each, grads, grads64, b
+
+    # -- (b) the four shapes ----------------------------------------------
+    shapes = {}
+
+    def bound(flops, nbytes):
+        f_ms, b_ms = 1e3 * flops / LANE_OPS_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S
+        return {"flops": flops, "bytes": nbytes, "bound_ms": max(f_ms, b_ms),
+                "bound_by": "operations" if f_ms >= b_ms else "bytes"}
+
+    def shape_done(name, row):
+        row["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        shapes[name] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.reset_peak_memory_stats()
+    B = DIN_SIZES["train_batch"]
+    ocfg = opt_mod.OptimizerConfig(name="adamw", lr=DIN_LR, warmup_steps=0)
+    step = train_steps.din_train_step(cfg, ocfg)
+    b = synthetic.din_batch(cfg, B, seed=SEED + 45, device=dev)
+    p, st = params, opt_mod.init(ocfg, params)
+    losses, walls = [], []
+    for _ in range(DIN_TRAIN_STEPS):
+        (p, st, m), wall = sync_time(lambda: step(p, st, b))
+        losses.append(float(m["loss"]))
+        walls.append(wall)
+    med = statistics.median(walls[1:])
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        problems.append(f"train_batch losses {losses}")
+    row = {"batch": B, "losses": losses, "step_s": walls,
+           "median_step_s": med, "samples_per_s": B / med,
+           "attention_feature_bytes": B * feat_bytes,
+           **bound(3 * B * fwd, din_bytes(params, b, 4, train=True))}
+    row["of_bound"] = row["bound_ms"] / (1e3 * med)
+    prof["train_step"] = profiled(lambda: step(p, st, b))
+    del p, st, m, b
+    shape_done("train_batch", row)
+
+    B = DIN_SIZES["serve_p99"]
+    b = synthetic.din_batch(cfg, B, seed=SEED + 46, device=dev)
+    for _ in range(3):
+        serve(params, b)
+    walls = [sync_time(lambda: serve(params, b))[1]
+             for _ in range(DIN_P99_CALLS)]
+    logits = serve(params, b)
+    if logits.shape != (B,) or not bool(torch.isfinite(logits).all()):
+        problems.append("serve_p99 logits")
+    row = {"batch": B, "calls": len(walls),
+           "p50_ms": 1e3 * float(np.percentile(walls, 50)),
+           "p99_ms": 1e3 * float(np.percentile(walls, 99)),
+           "samples_per_s": B / statistics.median(walls),
+           "attention_feature_bytes": B * feat_bytes,
+           **bound(B * fwd, din_bytes(params, b, 4 * B))}
+    row["of_bound_p50"] = row["bound_ms"] / row["p50_ms"]
+    prof["serve_p99"] = profiled(lambda: serve(params, b))
+    del b, logits
+    shape_done("serve_p99", row)
+
+    B = DIN_SIZES["serve_bulk"]
+    b = synthetic.din_batch(cfg, B, seed=SEED + 47, device=dev)
+    serve(params, b)
+    logits, wall = sync_time(lambda: serve(params, b))
+    if logits.shape != (B,) or not bool(torch.isfinite(logits).all()):
+        problems.append("serve_bulk logits")
+    row = {"batch": B, "s": wall, "samples_per_s": B / wall,
+           "attention_feature_bytes": B * feat_bytes,
+           **bound(B * fwd, din_bytes(params, b, 4 * B))}
+    row["of_bound"] = row["bound_ms"] / (1e3 * wall)
+    del b, logits
+    shape_done("serve_bulk", row)
+
+    N = DIN_SIZES["retrieval_cand"]
+    user = synthetic.din_batch(cfg, 1, seed=SEED + 48, device=dev)
+    ci, cc = cand_ids(N)
+    retrieve(params, user, ci, cc)
+    scores, wall = sync_time(lambda: retrieve(params, user, ci, cc))
+    if scores.shape != (1, N) or not bool(torch.isfinite(scores).all()):
+        problems.append("retrieval_cand scores")
+    row = {"users": 1, "candidates": N, "chunk": DIN_CHUNK, "s": wall,
+           "candidates_per_s": N / wall,
+           "attention_feature_bytes_a_block": DIN_CHUNK * feat_bytes,
+           **bound(N * fwd, din_bytes(params, user, 4 * N, cands=(ci, cc)))}
+    row["of_bound"] = row["bound_ms"] / (1e3 * wall)
+    del scores, ci, cc
+    shape_done("retrieval_cand", row)
+    out["shapes"] = shapes
+
+    # -- (c) the launcher ---------------------------------------------------
+    launch, wall = sync_time(lambda: launch_train.main(
+        ["--arch", "din", "--full-config", "--batch", str(DIN_GRAD_BATCH),
+         "--steps", "2"]))
+    out["launcher"] = {"losses": launch["losses"], "s": wall}
+    if len(launch["losses"]) != 2 or not all(map(math.isfinite,
+                                                  launch["losses"])):
+        problems.append(f"launcher losses {launch['losses']}")
+    del launch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (d) the compressed psum over 4 slots of the card -----------------
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh((DIN_SLOTS,), ("dp",), [dev] * DIN_SLOTS)
+    slots = list(mesh.devices.flat)
+    grads = []
+    for i, d in enumerate(slots):
+        b = synthetic.din_batch(cfg, DIN_GRAD_BATCH, seed=SEED + 50 + i,
+                                device=d)
+        grads.append(train_steps.value_and_grad(
+            loss_fn, {k: v.to(d) for k, v in params.items()}, b)[1])
+    zeros = [{k: torch.zeros_like(v) for k, v in g.items()} for g in grads]
+    compression.compressed_psum_tree(grads, zeros)
+    (sums, errs), psum_s = sync_time(
+        lambda: compression.compressed_psum_tree(grads, zeros))
+    exact, exact_s = sync_time(lambda: exact_psum(grads))
+    cpu_g = [{k: v.cpu() for k, v in g.items()} for g in grads]
+    cpu_sums, cpu_errs = compression.compressed_psum_tree(
+        cpu_g, [{k: torch.zeros_like(v) for k, v in g.items()}
+                for g in cpu_g])
+    same = all(same_bits(a[k].cpu(), c[k]) for got_, want_ in
+               ((sums, cpu_sums), (errs, cpu_errs))
+               for a, c in zip(got_, want_) for k in c)
+    exact64 = {k: sum(g[k].double() for g in grads) for k in grads[0]}
+    one_shot = {k: of_max(sums[0][k], exact64[k]) for k in exact64}
+    if not same:
+        problems.append("compressed psum on the card != the CPU's")
+    if not max(one_shot.values()) < DIN_PSUM_TOL:
+        problems.append(f"compressed psum one-shot error {one_shot}")
+    # the same gradients each step: the error of each step's sum, and of
+    # the mean of the sums so far (error feedback keeps its bias down)
+    feedback, feedback_mean, e, acc = [], [], zeros, None
+    for t in range(1, DIN_PSUM_STEPS + 1):
+        s, e = compression.compressed_psum_tree(grads, e)
+        acc = ({k: v.double() for k, v in s[0].items()} if acc is None
+               else {k: acc[k] + s[0][k] for k in acc})
+        feedback.append(max(of_max(s[0][k], exact64[k]) for k in exact64))
+        feedback_mean.append(max(of_max(acc[k] / t, exact64[k])
+                                 for k in exact64))
+    topk = {}
+    for k in grads[0]:
+        (kept, rest), wall = sync_time(
+            lambda: compression.topk_compress(grads[0][k], DIN_TOPK))
+        ck, cr = compression.topk_compress(cpu_g[0][k], DIN_TOPK)
+        topk[k] = {"k": int(max(1, int(kept.numel() * DIN_TOPK))), "s": wall,
+                   "same_as_cpu": same_bits(kept.cpu(), ck)
+                   and same_bits(rest.cpu(), cr)}
+        if not topk[k]["same_as_cpu"]:
+            problems.append(f"topk_compress {k} != the CPU's")
+    out["psum"] = {
+        "slots": [str(d) for d in slots],
+        "floats_a_slot": sum(v.numel() for v in grads[0].values()),
+        "bitwise_as_cpu": same, "one_shot_of_max": one_shot,
+        "feedback_of_max": feedback, "feedback_mean_of_max": feedback_mean,
+        "compressed_s": psum_s,
+        "exact_copies_s": exact_s,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "topk": topk}
+    del grads, zeros, sums, errs, exact, cpu_g, cpu_sums, cpu_errs, e, s, acc
+
+    emit({"phase": "din", "ok": not problems, "problems": problems[:10],
+          "flops_a_sample": fwd, "profile": prof,
+          "phase_s": time.perf_counter() - t_phase,
+          "reduced": [], "card": card_line(), **out})
+    if problems:
+        fail("din", "; ".join(problems[:5]))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--scale", type=int, default=SCALE,
@@ -4600,6 +4963,7 @@ def main() -> int:
     queries._GNN_MODELS.clear()
     del g, adj, road, first, ms_auto
     phase_lm()
+    phase_din()
 
     print(card_line(), flush=True)
     emit({"kernels": table})

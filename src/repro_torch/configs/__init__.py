@@ -1,10 +1,7 @@
 """Model configurations the port runs (its own copies: no import of the
 reference's ``repro.configs``) and the architecture registry: ``--arch
-<id>`` → config and shape ids, over the five LM configs and the four GNN
-families.
-
-The reference's DIN id is known here but not ported: asking for it
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 10.2).
+<id>`` → config and shape ids, over the reference's ten ids: the five LM
+configs, the four GNN families and DIN.
 """
 
 from __future__ import annotations
@@ -14,8 +11,9 @@ from typing import Dict, Union
 
 from repro_torch.configs.gnn import GNNConfig  # noqa: F401
 from repro_torch.configs.lm import MoEConfig, TransformerConfig  # noqa: F401
+from repro_torch.configs.recsys import DINConfig  # noqa: F401
 
-ArchConfig = Union[TransformerConfig, GNNConfig]
+ArchConfig = Union[TransformerConfig, GNNConfig, DINConfig]
 
 _MODULES: Dict[str, str] = {
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
@@ -27,16 +25,15 @@ _MODULES: Dict[str, str] = {
     "gcn-cora": "repro_torch.configs.gcn_cora",
     "gatedgcn": "repro_torch.configs.gatedgcn",
     "graphcast": "repro_torch.configs.graphcast",
+    "din": "repro_torch.configs.din",
 }
-
-#: the reference's ids whose families the port has not yet
-_NOT_PORTED = ("din",)
 
 ARCH_IDS = tuple(_MODULES)
 
 # shape ids per family (the reference's assignment table)
 LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+DIN_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
 
 # long_500k skipped for the pure full-attention LM archs
 SKIPPED_CELLS = tuple(
@@ -46,10 +43,6 @@ SKIPPED_CELLS = tuple(
 
 
 def _module(arch_id: str):
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP Queue 1 item "
-            f"10.2); ported: {ARCH_IDS}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; available: {ARCH_IDS}")
     return importlib.import_module(_MODULES[arch_id])
@@ -64,6 +57,9 @@ def get_reduced_config(arch_id: str) -> ArchConfig:
 
 
 def shapes_for(arch_id: str) -> tuple:
-    if isinstance(get_config(arch_id), TransformerConfig):
+    cfg = get_config(arch_id)
+    if isinstance(cfg, TransformerConfig):
         return LM_SHAPES
-    return GNN_SHAPES
+    if isinstance(cfg, GNNConfig):
+        return GNN_SHAPES
+    return DIN_SHAPES

@@ -30,7 +30,8 @@ turns the reference optimizer's state for those weights into the port's
 ``training.optimizer.OptState``, so both packages resume from one
 mid-run state. ``lm_state_from_reference`` does the same for a
 transformer's tree (the stacked ``[L, …]`` layers unstacked into
-``layers.{i}``).
+``layers.{i}``), ``din_state_from_reference`` for DIN's (the tables
+by their names, the MLPs' dense layers transposed).
 """
 
 from __future__ import annotations
@@ -217,7 +218,7 @@ def _tree_state(tree, prefix: str, dev, convert) -> Dict[str, torch.Tensor]:
 def _family_state(family: str, tree, dev, convert) -> Dict[str, torch.Tensor]:
     if family == "gcn":
         return _gcn_layers(tree, dev, convert)
-    if family in ("gatedgcn", "egnn", "graphcast"):
+    if family in ("gatedgcn", "egnn", "graphcast", "din"):
         return _tree_state(tree, "", dev, convert)
     raise NotImplementedError(f"no weight carry-over for family {family!r}")
 
@@ -228,6 +229,17 @@ def gnn_state_from_reference(cfg, params, device: DeviceLike = None
     ``cfg.family`` as the ``state_dict`` of the port's module (``GCN``,
     ``GatedGCN``, ``EGNN`` or ``GraphCast``) on ``device``, float32."""
     return _family_state(cfg.family, params, resolve_device(device), _f32)
+
+
+def din_state_from_reference(cfg, params, device: DeviceLike = None
+                             ) -> Dict[str, torch.Tensor]:
+    """The reference DIN's ``init_params(cfg, key)`` tree (numpy) as the
+    ``state_dict`` of ``models.recsys.din.DIN`` on ``device``, float32:
+    ``item_table``, ``cate_table`` and ``user_table`` as they are, each
+    ``attn_mlp``/``mlp`` layer's ``w`` transposed into ``.weight`` and
+    ``b`` as ``.bias``. ``opt_state_from_reference(..., family="din")``
+    lays out AdamW's moments the same way."""
+    return _family_state("din", params, resolve_device(device), _f32)
 
 
 def _moment(a, dev: torch.device) -> torch.Tensor:

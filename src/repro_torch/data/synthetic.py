@@ -1,9 +1,9 @@
-"""Synthetic token streams and GNN batches (numpy, seeded), the port's
-twin of the LM and GNN parts of ``repro.data.synthetic``: ``lm_batch``
-and ``TokenStream`` (the training data pipeline, with ``state`` and
+"""Synthetic token streams, GNN batches and DIN batches (numpy, seeded),
+the port's twin of ``repro.data.synthetic``: ``lm_batch`` and
+``TokenStream`` (the training data pipeline, with ``state`` and
 ``restore``), ``full_graph_batch``, ``rmat_batch``, ``minibatch_batch``
-(the neighbour-sampled ``minibatch_lg`` shape) and ``molecule_batch`` (a
-disjoint union of small graphs, graph labels).
+(the neighbour-sampled ``minibatch_lg`` shape), ``molecule_batch`` (a
+disjoint union of small graphs, graph labels) and ``din_batch``.
 
 The draws are the reference's, in its order, from one
 ``np.random.default_rng(seed)`` (the graph from the pattern's own seeded
@@ -30,11 +30,13 @@ import torch
 
 from repro_torch.configs.gnn import GNNConfig
 from repro_torch.configs.lm import TransformerConfig
+from repro_torch.configs.recsys import DINConfig
 from repro_torch.core.graphblas import GraphMatrix
 from repro_torch.data import graphs as graph_gen
 from repro_torch.data.neighbor_sampler import sample
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.gnn.common import GraphBatch
+from repro_torch.models.recsys.din import DINBatch
 
 
 # ---------------------------------------------------------------------------
@@ -241,3 +243,34 @@ def molecule_batch(cfg: GNNConfig, n_graphs: int, nodes_per: int = 30,
                          np.int64),
         coords=tensor(xyz),
         n_graphs=n_graphs)
+
+
+# ---------------------------------------------------------------------------
+# DIN batches
+# ---------------------------------------------------------------------------
+
+def din_batch(cfg: DINConfig, batch: int, seed: int = 0,
+              device: DeviceLike = None) -> DINBatch:
+    """A DIN batch of ``batch`` samples on ``device``: history lengths
+    uniform in ``[1, seq_len]``, ids uniform over each vocabulary, 0/1
+    labels; ids int32, the mask bool, the labels float32."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    L = cfg.seq_len
+    lens = rng.integers(1, L + 1, batch)
+    mask = np.arange(L)[None, :] < lens[:, None]
+
+    def ids(high, shape):
+        return torch.from_numpy(rng.integers(0, high, shape, dtype=np.int32)
+                                ).to(dev)
+
+    hist_items = ids(cfg.n_items, (batch, L))
+    hist_cates = ids(cfg.n_cates, (batch, L))
+    hist_mask = torch.from_numpy(mask).to(dev)
+    target_item = ids(cfg.n_items, batch)
+    target_cate = ids(cfg.n_cates, batch)
+    user_feats = ids(cfg.user_feat_vocab, (batch, cfg.n_user_feats))
+    labels = torch.from_numpy(rng.integers(0, 2, batch).astype(np.float32)
+                              ).to(dev)
+    return DINBatch(hist_items, hist_cates, hist_mask, target_item,
+                    target_cate, user_feats, labels)

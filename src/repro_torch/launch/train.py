@@ -1,10 +1,12 @@
 """Training launcher: ``--arch <id>`` on the card (or ``--device cpu``),
-the port of ``repro.launch.train``'s LM and GNN branches.
+the port of ``repro.launch.train``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gatedgcn \
       --steps 50
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b \
       --device cpu --steps 3 --batch 8 --seq 128
+  PYTHONPATH=src python -m repro_torch.launch.train --arch din \
+      --full-config --batch 4096 --steps 2
 
 The reduced config unless ``--full-config``. The model's weights come
 from the port's own initialisation (``nn.reset_parameters``, a seeded
@@ -13,15 +15,16 @@ from the port's own initialisation (``nn.reset_parameters``, a seeded
 ``train_steps.lm_train_step``; a GNN (``d_in`` capped at 64, as the
 reference's launcher caps it) on ``data.synthetic.full_graph_batch``
 (``--nodes``, block pattern, seed 1; coordinates for egnn) through
-``train_steps.gnn_train_step``; both under the port's trainer, AdamW at
+``train_steps.gnn_train_step``; DIN on ``data.synthetic.din_batch``
+(``--batch`` samples, step ``i`` on seed ``i``) through
+``train_steps.din_train_step``; all under the port's trainer, AdamW at
 lr 1e-3.
 
 Fault tolerance: ``--ckpt-dir`` checkpoints every ``--ckpt-every`` steps
 (with the token stream's position) and restarts from the latest on
 relaunch; ``--deadline-s`` counts straggler steps. ``graphcast`` exits as
 the reference's launcher does (it needs a mesh spec:
-``train_steps.graphcast_train_step``); the DIN id raises
-``NotImplementedError`` (ROADMAP Queue 1 item 10.2).
+``train_steps.graphcast_train_step``).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from typing import List, Optional
 import torch
 
 from repro_torch import nn as rnn
-from repro_torch.configs import (TransformerConfig, get_config,
+from repro_torch.configs import (DINConfig, TransformerConfig, get_config,
                                  get_reduced_config)
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
@@ -65,6 +68,12 @@ def build(arch: str, reduced: bool, nodes: int, device=None,
         params = _init(model, dev)
         step = train_steps.lm_train_step(cfg, opt_cfg)
         data = synthetic.TokenStream(cfg, batch, seq, seed=0, device=dev)
+        return cfg, params, opt_cfg, step, data
+    if isinstance(cfg, DINConfig):
+        params = _init(train_steps._din_model(cfg), dev)
+        step = train_steps.din_train_step(cfg, opt_cfg)
+        data = ((synthetic.din_batch(cfg, batch, seed=i, device=dev),)
+                for i in itertools.count())
         return cfg, params, opt_cfg, step, data
     if cfg.family == "graphcast":
         raise SystemExit("use examples/ for graphcast (needs mesh spec)")

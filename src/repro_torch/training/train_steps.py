@@ -1,7 +1,8 @@
-"""Train and inference steps for the LM and GNN families, the
-port of ``repro.training.train_steps``'s ``lm_train_step``,
+"""Train and inference steps for the LM, GNN and recsys families, the
+port of ``repro.training.train_steps``: ``lm_train_step``,
 ``lm_prefill_step``, ``lm_decode_step``, ``gnn_train_step``,
-``gnn_infer_step``, ``graphcast_train_step`` and ``graphcast_infer_step``.
+``gnn_infer_step``, ``graphcast_train_step``, ``graphcast_infer_step``,
+``din_train_step``, ``din_serve_step`` and ``din_retrieval_step``.
 
 A step is a function of the parameters (a dict ``name -> tensor``, the
 model's ``named_parameters``), the optimizer state and a batch. The model
@@ -13,8 +14,7 @@ GCN aggregation's gradient is ``spmm_dense`` over Aᵀ) and
 ``loss``, ``lr`` and ``grad_norm`` among the metrics. Families: the
 transformers through ``lm_*`` (``grad_accum`` microbatches: the mean of
 their gradients), gcn, gatedgcn and egnn through ``gnn_*``, graphcast
-through ``graphcast_*``; the DIN steps wait for ROADMAP Queue 1 item
-10.2.
+through ``graphcast_*``, DIN through ``din_*``.
 """
 
 from __future__ import annotations
@@ -27,8 +27,10 @@ from torch.func import functional_call
 
 from repro_torch.configs.gnn import GNNConfig
 from repro_torch.configs.lm import TransformerConfig
+from repro_torch.configs.recsys import DINConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.gnn import egnn, gatedgcn, gcn, graphcast
+from repro_torch.models.recsys.din import DIN
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training.optimizer import Tensors
 
@@ -247,5 +249,54 @@ def graphcast_infer_step(cfg: GNNConfig,
     @torch.no_grad()
     def step(params: Tensors, feat):
         return functional_call(model, params, (feat, mesh_spec), strict=True)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# DIN
+# ---------------------------------------------------------------------------
+
+def _din_model(cfg: DINConfig) -> DIN:
+    with torch.device("meta"):
+        return DIN(cfg)
+
+
+def din_loss_fn(cfg: DINConfig) -> Callable:
+    """``loss_fn(params, batch) -> (loss, {"bce": loss})``."""
+    return _bound_loss(_din_model(cfg), DIN.loss_fn)
+
+
+def din_train_step(cfg: DINConfig, opt_cfg: opt_mod.OptimizerConfig
+                   ) -> Callable:
+    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
+    (the tables' gradients dense, every row updated)."""
+    loss_fn = din_loss_fn(cfg)
+
+    def step(params: Tensors, opt_state: opt_mod.OptState, batch):
+        return _apply(opt_cfg, loss_fn, params, opt_state, batch)
+
+    return step
+
+
+def din_serve_step(cfg: DINConfig) -> Callable:
+    """``step(params, batch) -> logits [B]`` (no gradients)."""
+    run = _bound_loss(_din_model(cfg), DIN.forward)
+
+    @torch.no_grad()
+    def step(params: Tensors, batch):
+        return run(params, batch)
+
+    return step
+
+
+def din_retrieval_step(cfg: DINConfig) -> Callable:
+    """``step(params, batch, cand_items, cand_cates) -> logits [B, N]``:
+    ``DIN.score_candidates`` in its blocks of 4,096 (no gradients)."""
+    run = _bound_loss(_din_model(cfg), DIN.score_candidates)
+
+    @torch.no_grad()
+    def step(params: Tensors, batch, cand_items, cand_cates):
+        return run(params, batch, cand_items, cand_cates)
 
     return step

@@ -716,7 +716,7 @@ def test_spmm_b2sr_shardmap_is_bitwise():
 
 @needs_reference
 def test_registry_matches_reference():
-    assert set(rconfigs.ARCH_IDS) - set(configs.ARCH_IDS) == {"din"}
+    assert set(rconfigs.ARCH_IDS) == set(configs.ARCH_IDS)
     assert configs.GNN_SHAPES == rconfigs.GNN_SHAPES
     assert configs.LM_SHAPES == rconfigs.LM_SHAPES
     assert configs.SKIPPED_CELLS == rconfigs.SKIPPED_CELLS
@@ -728,11 +728,6 @@ def test_registry_matches_reference():
     for arch in ("phi4-mini-3.8b", "gemma-7b", "minitron-4b",
                  "qwen3-moe-30b-a3b", "arctic-480b"):
         assert configs.shapes_for(arch) == configs.LM_SHAPES
-    for arch in set(rconfigs.ARCH_IDS) - set(configs.ARCH_IDS):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            configs.get_config(arch)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            configs.shapes_for(arch)
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
 
@@ -756,8 +751,6 @@ def test_launch_train_main(arch, tmp_path):
     assert (tmp_path / "step_00000002").is_dir()
     with pytest.raises(SystemExit):
         launch_train.main(["--arch", "graphcast", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        launch_train.main(["--arch", "din", "--device", "cpu"])
 
 
 def test_default_init_is_seeded():
