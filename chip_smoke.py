@@ -325,6 +325,36 @@ a failed phase exits non-zero.
      ``topk_compress`` at 1% equal to the CPU's; its wall beside the
      exact psum's copies. Prints the cuts (``reduced``: none), the card
      and the phase's wall.
+ 25. spmd: the SPMD layer (DTensor, ``repro_torch.sharding``; no hand
+     kernel). (a) On the card, a one-rank NCCL world and a (1, 1)
+     ``("data", "model")`` mesh (NCCL takes no two ranks on one card: the
+     multi-rank values are held by ``tests/test_torch_spmd.py`` on 8 gloo
+     ranks on the CPU); TF32 off. phi4-mini-3.8b at full width with 2 of
+     32 layers, in its own bfloat16: one AdamW step (lr 1e-3, no warmup)
+     at train_4k's 4,096 tokens and batch 2 with parameters, AdamW state
+     and batch placed as DTensors by ``rules`` against the same step on
+     plain tensors from the same weights: loss and gradient norm within
+     rtol 1e-5, every first moment within 1e-4 of its tensor's max (the
+     CPU test's limit; a repeat of the plain step is printed beside), and
+     at most 1% of each updated parameter's elements off by over 1% of lr
+     (AdamW's first update is about lr·sign(g): a gradient near zero has
+     a noisy sign), a share that a control step with a wrong gradient
+     (other labels) must exceed. qwen3-moe-30b-a3b at full width with 2
+     of 48 layers, float32 (the dispatch's ``index_add`` sums with atomics,
+     so in bfloat16 even one path run twice parts by its roundings),
+     capacity factor E/k = 16 (C = N: nothing can drop), 2 × 1,024
+     tokens: the loss and its gradients through ``moe_ffn_shardmap``
+     (counted) against the dense dispatch, loss within rtol 1e-5, every
+     gradient within 1e-4 of its tensor's max. Layer 0 of the phi4
+     weights saved, then restored onto the mesh by
+     ``rules.tree_shardings``: equal bit for bit. Walls of each, sharded
+     and plain. (b) Meanwhile, on the host, the production dry run
+     (``launch.dryrun``, every layer counted) of the LM cells
+     ``train_4k`` and ``decode_32k`` of the five archs on 16 × 16 and
+     2 × 16 × 16, one process a cell and mesh, seven at a time: one JSON
+     line a cell (``prefill_32k`` takes minutes a cell and is left out;
+     ``long_500k`` is a skipped cell). Prints the walls, peak device
+     memory and the card.
 
 The kernels phase also holds ``bmm_tc`` and ``spgemm_bbb`` against their
 plain versions on the small graphs at every tile dim (SpGEMM with no
@@ -522,6 +552,23 @@ DIN_SLOTS = 4                  # din (d): compressed psum's slots
 DIN_PSUM_STEPS = 4             # error feedback steps
 DIN_PSUM_TOL = 0.1             # one-shot error, of max |exact sum|
 DIN_TOPK = 0.01                # topk_compress's k_frac
+SPMD_PHI4 = (2, 2, 4096)       # spmd (a): phi4 layers, batch, tokens a row
+SPMD_MOE = (2, 2, 1024)        # spmd (a): qwen3 layers, batch, tokens a row
+SPMD_LR = 1e-3                 # spmd (a): AdamW, no warmup
+SPMD_LOSS_RTOL = 1e-5          # sharded vs unsharded loss and grad norm
+SPMD_GRAD_TOL = 1e-4           # moments / gradients: max |Δ| of their max
+#: the largest share of a parameter's elements that may be off by over 1%
+#: of lr after the first AdamW step (the 8-rank CPU test reads 2.4e-4
+#: sound and 0.55 for a wrong gradient)
+SPMD_SHARE = 1e-2
+#: spmd (b): the dry-run cells (both meshes each, every layer counted),
+#: longest first, in parallel processes on the host; ``prefill_32k`` is
+#: left out (minutes a cell: 64 q blocks a layer)
+SPMD_DRYRUN = tuple((a, s) for s in ("train_4k", "decode_32k")
+                    for a in ("gemma-7b", "qwen3-moe-30b-a3b", "minitron-4b",
+                              "arctic-480b", "phi4-mini-3.8b"))
+SPMD_DRYRUN_PROCS = 7          # one process a cell and mesh
+SPMD_DRYRUN_TIMEOUT = 400      # seconds a dry-run process may take
 #: shard: the kernels the sharded rows launch per shard
 SHARD_KERNELS = ("bmv_bbb_push", "bmv_bbb_pull", "bmv_bff", "bmv_bbf",
                  "bmm_tc", "spgemm_bbb", "spmm_bbb", "spmm_dense",
@@ -4827,6 +4874,270 @@ def phase_din():
         fail("din", "; ".join(problems[:5]))
 
 
+def spmd_dryrun(out_dir: str):
+    """The production dry run of ``SPMD_DRYRUN`` on both meshes in
+    ``SPMD_DRYRUN_PROCS`` host processes (kept off the card), one a cell
+    and mesh; returns the pool and its futures, each ``(arch, shape,
+    mesh, returncode, passed, output tail, seconds)``."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+
+    def run(job):
+        arch, shape, mesh = job
+        t0 = time.perf_counter()
+        try:
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--mesh", mesh, "--out",
+                 out_dir], capture_output=True, text=True, env=env,
+                timeout=SPMD_DRYRUN_TIMEOUT)
+            code = r.returncode
+            passed = "ALL DRY-RUN CELLS PASSED" in r.stdout
+            tail = (r.stdout if passed else r.stdout + r.stderr)[-600:]
+        except subprocess.TimeoutExpired:
+            code, passed, tail = None, False, "timed out"
+        return arch, shape, mesh, code, passed, tail, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(SPMD_DRYRUN_PROCS)
+    return pool, [pool.submit(run, (a, s, m)) for a, s in SPMD_DRYRUN
+                  for m in ("multi", "single")]
+
+
+def share_off(got, want, lr: float) -> float:
+    """The largest share, over two dicts of updated parameters (``got``'s
+    may be DTensors), of a parameter's elements off by over 1% of lr."""
+    from repro_torch.sharding import spmd
+    return max(float(((spmd.full(got[k]).float() - w.float()).abs()
+                      > 1e-2 * lr).float().mean()) for k, w in want.items())
+
+
+def phase_spmd():
+    """The SPMD layer on the card and the production dry run on the host
+    (see the module doc, phase 25)."""
+    import gc
+    import tempfile
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import phi4_mini_3_8b, qwen3_moe_30b_a3b
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.sharding import rules, spmd
+    from repro_torch.training import checkpoint
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_steps
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    problems, out = [], {}
+    tmp = tempfile.TemporaryDirectory()
+    pool, jobs = spmd_dryrun(tmp.name)
+    torch.cuda.reset_peak_memory_stats()
+    out["tf32"] = bool(torch.backends.cuda.matmul.allow_tf32)
+    if out["tf32"]:
+        problems.append("float32 matmuls run as TF32")
+
+    def rel(a, b) -> float:
+        return abs(float(a) / float(b) - 1)
+
+    def apart(got, want) -> dict:
+        """Over two dicts of tensors, the largest per-tensor ‖Δ‖/‖want‖
+        (``norm``) and max |Δ| / max |want| (``of_max``), each with its
+        tensor's name."""
+        norm, elem = (0.0, ""), (0.0, "")
+        for k, w in want.items():
+            d = spmd.full(got[k]).double() - w.double()
+            norm = max(norm, (float(d.norm() / max(float(w.double().norm()),
+                                                   1e-30)), k))
+            elem = max(elem, (float(d.abs().max() / max(
+                float(w.double().abs().max()), 1e-30)), k))
+        return {"norm": norm[0], "norm_at": norm[1], "of_max": elem[0],
+                "of_max_at": elem[1]}
+
+    with mesh_mod.real_world(DEVICE) as dev:
+        mesh = init_device_mesh(dev.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        bt = (("data",), None)
+        # -- phi4: one AdamW step, sharded against plain ---------------------
+        layers, batch, seq = SPMD_PHI4
+        cfg = dataclasses.replace(phi4_mini_3_8b.CONFIG, n_layers=layers,
+                                  batch_axes=("data",), tp_width=1)
+        params = lm_params(cfg, dev, 60)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+        tok = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                            device=dev, dtype=torch.int32)
+        lab = torch.roll(tok, -1, 1)
+        ocfg = opt_mod.OptimizerConfig(lr=SPMD_LR, warmup_steps=0)
+        lr = float(opt_mod.lr_at(ocfg, 1))
+        step = train_steps.lm_train_step(cfg, ocfg)
+        (p_plain, s_plain, m_plain), plain_s = sync_time(
+            lambda: step(params, opt_mod.init(ocfg, params), tok, lab))
+        s_plain = s_plain._replace(v=None)    # only m is compared
+        # the plain step again (the card's own run-to-run spread), and a
+        # control with a wrong gradient (other labels) for the share bound
+        s_again = step(params, opt_mod.init(ocfg, params), tok, lab)[1]
+        repeat = apart(s_again.m, s_plain.m)
+        del s_again
+        p_ctrl = step(params, opt_mod.init(ocfg, params), tok,
+                      lab.roll(1, 1))[0]
+        control = share_off(p_ctrl, p_plain, lr)
+        del p_ctrl
+        specs = rules.lm_param_specs(cfg, params)
+        state = opt_mod.init(ocfg, params)
+        dp = spmd.place_tree(params, mesh, specs)
+        dst = spmd.place_tree(state, mesh, rules.opt_state_specs(specs,
+                                                                 state))
+        dtok, dlab = spmd.place(tok, mesh, bt), spmd.place(lab, mesh, bt)
+        del state
+        first_s = sync_time(lambda: step(dp, dst, dtok, dlab))[1]
+        (p_sh, s_sh, m_sh), sharded_s = sync_time(
+            lambda: step(dp, dst, dtok, dlab))
+        s_sh = s_sh._replace(v=None)
+        phi = {"layers": layers, "batch": batch, "tokens_a_row": seq,
+               "dtype": cfg.dtype, "attn_probs_bf16": cfg.attn_probs_bf16,
+               "n_params": sum(v.numel() for v in params.values()),
+               "loss": float(spmd.full(m_sh["loss"])),
+               "loss_plain": float(m_plain["loss"]),
+               "loss_rel": rel(spmd.full(m_sh["loss"]), m_plain["loss"]),
+               "grad_norm_rel": rel(spmd.full(m_sh["grad_norm"]),
+                                    m_plain["grad_norm"]),
+               "m_apart": apart(s_sh.m, s_plain.m),
+               "m_apart_plain_repeat": repeat,
+               "params_share_off": share_off(p_sh, p_plain, lr),
+               "params_share_off_wrong_grad": control,
+               "step_s": {"plain": plain_s, "sharded_first": first_s,
+                          "sharded": sharded_s},
+               "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        out["phi4"] = phi
+        if not (phi["loss_rel"] <= SPMD_LOSS_RTOL
+                and phi["grad_norm_rel"] <= SPMD_LOSS_RTOL
+                and phi["m_apart"]["of_max"] <= SPMD_GRAD_TOL
+                and phi["params_share_off"] <= SPMD_SHARE < control):
+            problems.append(f"phi4 sharded step != plain: {phi}")
+
+        # -- a sharded restore of layer 0 onto the mesh, bit for bit ----------
+        tree = {k: v for k, v in params.items() if k.startswith("layers.0.")}
+        with tempfile.TemporaryDirectory() as d:
+            (_, save_s) = sync_time(lambda: checkpoint.save(d, 1, tree))
+            (restored, _), restore_s = sync_time(lambda: checkpoint.restore(
+                d, 1, tree, device=dev,
+                shardings=rules.tree_shardings(mesh, {k: specs[k]
+                                                      for k in tree})))
+        same = all(spmd.is_dtensor(restored[k])
+                   and same_bits(restored[k].full_tensor(), v)
+                   for k, v in tree.items())
+        out["restore"] = {"arrays": len(tree),
+                          "bytes": sum(v.numel() * 4 for v in tree.values()),
+                          "bitwise": same, "save_s": save_s,
+                          "restore_s": restore_s}
+        if not same:
+            problems.append("the sharded restore is not bit for bit")
+        del params, p_plain, s_plain, p_sh, s_sh, dp, dst, restored, tree
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        # -- qwen3: the MoE through moe_ffn_shardmap, against the dense one ---
+        layers, batch, seq = SPMD_MOE
+        base = qwen3_moe_30b_a3b.CONFIG
+        # float32: the dispatch's index_add sums with atomics, so in
+        # bfloat16 even one path run twice parts by its roundings
+        qcfg = dataclasses.replace(
+            base, n_layers=layers, batch_axes=("data",), tp_width=1,
+            dtype="float32",
+            moe=dataclasses.replace(base.moe, capacity_factor=(
+                base.moe.n_experts / base.moe.top_k)))
+        qp = lm_params(qcfg, dev, 61)
+        qtok = torch.randint(0, qcfg.vocab_size, (batch, seq), generator=gen,
+                             device=dev, dtype=torch.int32)
+        qlab = torch.roll(qtok, -1, 1)
+        loss_fn = train_steps.lm_loss_fn(qcfg)
+        ((l_plain, _), g_plain), qplain_s = sync_time(
+            lambda: train_steps.value_and_grad(loss_fn, qp, qtok, qlab))
+        calls = [0]
+        ep = moe_mod.moe_ffn_shardmap
+
+        def counted_ep(*a, **kw):
+            calls[0] += 1
+            return ep(*a, **kw)
+
+        moe_mod.moe_ffn_shardmap = counted_ep
+        try:
+            qspecs = rules.lm_param_specs(qcfg, qp)
+            dqp = spmd.place_tree(qp, mesh, qspecs)
+            ((l_sh, _), g_sh), qsh_s = sync_time(
+                lambda: train_steps.value_and_grad(
+                    loss_fn, dqp, spmd.place(qtok, mesh, bt),
+                    spmd.place(qlab, mesh, bt)))
+        finally:
+            moe_mod.moe_ffn_shardmap = ep
+        moe = {"layers": layers, "tokens": batch * seq,
+               "capacity_factor": qcfg.moe.capacity_factor,
+               "capacity": moe_mod.capacity(batch * seq, qcfg.moe),
+               "ep_calls": calls[0],
+               "loss": float(spmd.full(l_sh)), "loss_plain": float(l_plain),
+               "loss_rel": rel(spmd.full(l_sh), l_plain),
+               "grads_apart": apart(g_sh, g_plain),
+               "loss_and_grads_s": {"plain": qplain_s, "sharded": qsh_s},
+               "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        out["qwen3_moe"] = moe
+        if calls[0] < layers:
+            problems.append(f"moe_ffn_shardmap ran {calls[0]} times, "
+                            f"not once a layer ({layers})")
+        if not (moe["loss_rel"] <= SPMD_LOSS_RTOL
+                and moe["grads_apart"]["of_max"] <= SPMD_GRAD_TOL):
+            problems.append(f"qwen3 EP loss/grads != dense: {moe}")
+        del qp, dqp, g_plain, g_sh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) the production dry run, run meanwhile on the host ---------------
+    t_wait = time.perf_counter()
+    cells = []
+    for job in jobs:
+        arch, shape, which, code, passed, tail, secs = job.result()
+        if code != 0 or not passed:
+            problems.append(f"dry run {arch} x {shape} ({which}): exit "
+                            f"{code}: {tail[-300:]}")
+        mesh_name = {"single": "16x16", "multi": "2x16x16"}[which]
+        path = Path(tmp.name) / f"{arch}__{shape}__{mesh_name}.json"
+        if path.exists():
+            rec = json.loads(path.read_text())
+            line = {"phase": "spmd_dryrun", "arch": arch, "shape": shape,
+                    "mesh": mesh_name, "process_s": secs,
+                    **{k: rec[k] for k in (
+                        "kind", "n_chips", "seconds", "layers_counted",
+                        "memory", "flops_per_device", "bytes_per_device",
+                        "ops_per_device", "collectives", "meta")}}
+            emit(line)
+            cells.append(line)
+    pool.shutdown()
+    tmp.cleanup()
+    if len(cells) != 2 * len(SPMD_DRYRUN):
+        problems.append(f"dry run: {len(cells)} of "
+                        f"{2 * len(SPMD_DRYRUN)} cells recorded")
+    out["dryrun"] = {"cells": len(cells), "wait_after_card_s":
+                     time.perf_counter() - t_wait,
+                     "left_out": {"prefill_32k": "minutes a cell on the "
+                                  "host (64 q blocks a layer), beyond the "
+                                  "phase's budget",
+                                  "long_500k": "a skipped cell "
+                                  "(SKIPPED_CELLS)"}}
+    emit({"phase": "spmd", "ok": not problems, "problems": problems[:10],
+          "one_rank": "NCCL takes no two ranks on one card: the multi-rank "
+                      "values are held by tests/test_torch_spmd.py on 8 "
+                      "gloo ranks on the CPU",
+          "phase_s": time.perf_counter() - t_phase,
+          "reduced": [f"phi4 {SPMD_PHI4[0]} of 32 layers",
+                      f"qwen3 {SPMD_MOE[0]} of 48 layers",
+                      "dry run without prefill_32k"],
+          "card": card_line(), **out})
+    if problems:
+        fail("spmd", "; ".join(problems[:5]))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--scale", type=int, default=SCALE,
@@ -4964,6 +5275,7 @@ def main() -> int:
     del g, adj, road, first, ms_auto
     phase_lm()
     phase_din()
+    phase_spmd()
 
     print(card_line(), flush=True)
     emit({"kernels": table})

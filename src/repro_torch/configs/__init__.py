@@ -63,3 +63,13 @@ def shapes_for(arch_id: str) -> tuple:
     if isinstance(cfg, GNNConfig):
         return GNN_SHAPES
     return DIN_SHAPES
+
+
+def all_cells(include_skipped: bool = False):
+    """Every (arch, shape) pair of the assignment; skips applied by
+    default."""
+    for arch in ARCH_IDS:
+        for shape in shapes_for(arch):
+            if not include_skipped and (arch, shape) in SKIPPED_CELLS:
+                continue
+            yield arch, shape

@@ -4,16 +4,16 @@ order, with the same defaults, so ``dataclasses.asdict`` of a port config
 equals the reference's).
 
 ``dtype`` is the compute dtype: parameters stay float32 and each weight
-is cast to the activations' dtype where it is used. The reference's
-GSPMD fields (``batch_axes``, ``tp_width``, ``attn_seq_shard``,
-``moe_shardmap_dispatch``, ``seq_parallel_residual``) and
-``scan_layers`` are kept for the registry and do nothing here: the port
-runs the model on one device, with one module per layer and the dense
-MoE dispatch, until the sharding rules are ported (ROADMAP Queue 1 item
-10.3). The reference's other GSPMD fields act only once ``batch_axes``
-or ``tp_width`` is set, so a config that sets either raises instead of
-running unsharded; ``scan_layers`` changes how the reference compiles
-its layers, not what they compute.
+is cast to the activations' dtype where it is used. The GSPMD fields act
+as in the reference once the model runs over DTensors on a mesh
+(``repro_torch.sharding``): ``batch_axes`` pins the residual stream's
+batch to those mesh axes (and, with ``seq_parallel_residual`` and heads
+that ``tp_width`` does not divide, its sequence to "model");
+``attn_seq_shard`` shards the chunked attention's q blocks over "model";
+``moe_shardmap_dispatch`` takes the MoE's expert-parallel dispatch. On
+plain tensors they do nothing. ``scan_layers`` changes how the
+reference compiles its layers, not what they compute: the port keeps
+one module per layer.
 """
 
 from __future__ import annotations
@@ -53,20 +53,13 @@ class TransformerConfig:
     remat: bool = True                  # one checkpoint per layer
     scan_layers: bool = True            # unused: one module per layer
     max_seq_len: int = 32768
-    batch_axes: tuple = ()              # unused until item 10.3
-    attn_seq_shard: bool = True         # unused until item 10.3
-    tp_width: int = 0                   # unused until item 10.3
-    moe_shardmap_dispatch: bool = True  # unused: the dense dispatch runs
+    batch_axes: tuple = ()              # mesh axes of the batch
+    attn_seq_shard: bool = True
+    tp_width: int = 0                   # size of the "model" axis
+    moe_shardmap_dispatch: bool = True  # expert-parallel MoE on a mesh
     # the chunked attention's exp in bfloat16 (m and l stay float32)
     attn_probs_bf16: bool = True
-    seq_parallel_residual: bool = True  # unused until item 10.3
-
-    def __post_init__(self):
-        if self.batch_axes or self.tp_width:
-            raise ValueError(
-                f"{self.name}: batch_axes={self.batch_axes!r}, tp_width="
-                f"{self.tp_width} ask for the GSPMD sharding, which the "
-                "port does not have yet (ROADMAP Queue 1 item 10.3)")
+    seq_parallel_residual: bool = True
 
     @property
     def q_dim(self) -> int:

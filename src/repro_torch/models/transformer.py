@@ -39,7 +39,7 @@ tensors; :func:`generate` is the greedy or temperature loop.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +50,8 @@ from repro_torch.configs.lm import TransformerConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.moe import MoE
 from repro_torch.nn import CastDense, RMSNorm, embed_init, remat
+from repro_torch.sharding import lm as shard_lm
+from repro_torch.sharding import spmd
 
 # sequences at or below this use the plain (materialised) attention path
 _CHUNKED_ATTN_THRESHOLD = 2048
@@ -158,18 +160,28 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor,
                              cfg: Optional[TransformerConfig] = None,
                              q_block: int = 512,
-                             kv_block: int = 1024) -> torch.Tensor:
+                             kv_block: int = 1024,
+                             q_starts: Optional[Sequence[int]] = None
+                             ) -> torch.Tensor:
     """Flash-style causal GQA: online softmax over KV blocks, one q block
     at a time; never materialises the [S, S] scores (peak per block
-    [B, KV, G, qb, kb] float32)."""
+    [B, KV, G, qb, kb] float32).
+
+    k and v hold the whole sequence; q holds ``nq`` blocks of
+    ``q_block`` rows, block ``qi`` starting at absolute position
+    ``q_starts[qi]`` (default ``qi · q_block``: q is the whole sequence
+    too; a rank of the sequence-sharded attention holds a slice of every
+    block)."""
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    T, KV = k.shape[1], k.shape[2]
     G = H // KV
-    q_block, kv_block = min(q_block, S), min(kv_block, S)
-    if S % q_block or S % kv_block:
-        raise ValueError(f"S = {S} is not a multiple of the blocks "
-                         f"({q_block}, {kv_block})")
-    nq, nk = S // q_block, S // kv_block
+    q_block, kv_block = min(q_block, S), min(kv_block, T)
+    if S % q_block or T % kv_block:
+        raise ValueError(f"S = {S}, T = {T} are not multiples of the "
+                         f"blocks ({q_block}, {kv_block})")
+    nq, nk = S // q_block, T // kv_block
+    starts = (list(q_starts) if q_starts is not None
+              else [qi * q_block for qi in range(nq)])
     qr = q.reshape(B, nq, q_block, KV, G, hd)
     kr = k.reshape(B, nk, kv_block, KV, hd)
     vr = v.reshape(B, nk, kv_block, KV, hd)
@@ -177,15 +189,15 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     q_pos = torch.arange(q_block, device=q.device)
     k_pos = torch.arange(kv_block, device=q.device)
 
-    def q_step(qb, kr, vr, qi: int):
+    def q_step(qb, kr, vr, q0: int):
         m = torch.full((B, KV, G, q_block), -math.inf, device=q.device)
         l = torch.zeros((B, KV, G, q_block), device=q.device)
         acc = torch.zeros((B, KV, G, q_block, hd), device=q.device)
         # kv blocks wholly above the diagonal add nothing: skipped
-        for ki in range(-(-(qi + 1) * q_block // kv_block)):
+        for ki in range(-(-(q0 + q_block) // kv_block)):
             kb, vb = kr[:, ki], vr[:, ki]
             s = attn_scores(qb, kb)
-            valid = ((qi * q_block + q_pos)[:, None]
+            valid = ((q0 + q_pos)[:, None]
                      >= (ki * kv_block + k_pos))
             s = torch.where(valid, s, -1e30)
             m_new = torch.maximum(m, s.amax(-1))
@@ -209,12 +221,22 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
         if torch.is_grad_enabled():
             # the backward recomputes this q block's sweep instead of
             # keeping its score blocks
-            outs.append(checkpoint(q_step, qr[:, qi], kr, vr, qi,
+            outs.append(checkpoint(q_step, qr[:, qi], kr, vr, starts[qi],
                                    use_reentrant=False))
         else:
-            outs.append(q_step(qr[:, qi], kr, vr, qi))
+            outs.append(q_step(qr[:, qi], kr, vr, starts[qi]))
     out = torch.stack(outs, 1)                     # [B,nq,KV,G,qb,hd]
     return out.permute(0, 1, 4, 2, 3, 5).reshape(B, S, H * hd)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask,
+           cfg: TransformerConfig, decode: bool = False) -> torch.Tensor:
+    """The attention of one layer: the materialised path for decode and
+    short sequences, the chunked path above the threshold (on a mesh,
+    ``sharding.lm.attention`` runs it on each rank's tensors)."""
+    if not decode and q.shape[1] > _CHUNKED_ATTN_THRESHOLD:
+        return chunked_causal_attention(q, k, v, cfg)
+    return gqa_attention(q, k, v, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -255,10 +277,10 @@ class Block(nn.Module):
         place and attends over the whole cache."""
         cfg = self.cfg
         B, S, _ = h.shape
-        x = self.attn_norm(h)
-        q = self.wq(x).reshape(B, S, cfg.n_heads, cfg.head_dim)
-        k = self.wk(x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-        v = self.wv(x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+        x = shard_lm.batch_only(self.attn_norm(h), cfg)
+        q = shard_lm.split_heads(self.wq(x), cfg.n_heads, cfg)
+        k = shard_lm.split_heads(self.wk(x), cfg.n_kv_heads, cfg)
+        v = shard_lm.split_heads(self.wv(x), cfg.n_kv_heads, cfg)
         if cfg.qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
         cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
@@ -266,19 +288,20 @@ class Block(nn.Module):
         new_kv = (k, v)
         if kv is not None:
             cache_k, cache_v, n = kv
-            cache_k[:, n:n + S] = k
-            cache_v[:, n:n + S] = v
+            shard_lm.write_cache(cache_k, k, n)
+            shard_lm.write_cache(cache_v, v, n)
             new_kv = (cache_k, cache_v)
-            attn = gqa_attention(q, cache_k, cache_v, mask)
-        elif S > _CHUNKED_ATTN_THRESHOLD:
-            attn = chunked_causal_attention(q, k, v, cfg)
+            attn = shard_lm.attention(q, cache_k, cache_v, mask, cfg,
+                                      decode=True)
         else:
-            attn = gqa_attention(q, k, v, mask)
-        return h + self.wo(attn), new_kv
+            attn = shard_lm.attention(q, k, v, mask, cfg)
+        # the row-parallel partial sum reduced into the residual's layout
+        # (a reduce-scatter under Megatron-SP)
+        return h + shard_lm.constrain_batch(self.wo(attn), cfg), new_kv
 
     def ffn(self, h):
         cfg = self.cfg
-        x = self.ffn_norm(h)
+        x = shard_lm.batch_only(self.ffn_norm(h), cfg)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if cfg.moe is not None:
             y, aux = self.moe(x)
@@ -290,12 +313,13 @@ class Block(nn.Module):
         else:                                        # relu2
             u = F.relu(self.w_up(x))
             y = self.w_down(u * u)
-        return h + y, aux
+        return h + shard_lm.constrain_batch(y, cfg), aux
 
     def forward(self, h, positions, mask, kv=None):
         h, new_kv = self.attn(h, positions, mask, kv)
+        h = shard_lm.constrain_batch(h, self.cfg)
         h, aux = self.ffn(h)
-        return h, new_kv, aux
+        return shard_lm.constrain_batch(h, self.cfg), new_kv, aux
 
 
 class Transformer(nn.Module):
@@ -318,13 +342,13 @@ class Transformer(nn.Module):
                                     dtype=self.embed.dtype))
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens.long(), self.embed).to(
+        return shard_lm.embedding(tokens, self.embed, self.cfg).to(
             compute_dtype(self.cfg))
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         h = self.final_norm(h)
         if self.cfg.tie_embeddings:
-            return F.linear(h, self.embed.to(h.dtype)).float()
+            return spmd.linear(h, self.embed.to(h.dtype)).float()
         return self.lm_head(h).float()
 
     def forward(self, tokens: torch.Tensor, return_cache: bool = False,
@@ -334,8 +358,12 @@ class Transformer(nn.Module):
 
         ``last_only`` applies the head to the final position only
         (prefill: no [B, S, V] logits)."""
+        with spmd.replicate_plain(self.embed):
+            return self._forward(tokens, return_cache, last_only)
+
+    def _forward(self, tokens, return_cache, last_only):
         B, S = tokens.shape
-        h = self._embed(tokens)
+        h = shard_lm.constrain_batch(self._embed(tokens), self.cfg)
         positions = torch.arange(S, device=h.device).expand(B, S)
         causal = (torch.tril(torch.ones((S, S), dtype=torch.bool,
                                         device=h.device))[None, None]
@@ -350,6 +378,8 @@ class Transformer(nn.Module):
             if return_cache:
                 ks.append(k)
                 vs.append(v)
+        # a sequence-sharded residual gathered before the head (Megatron-SP)
+        h = shard_lm.batch_only(h, self.cfg)
         if last_only:
             h = h[:, -1:]
         logits, aux_loss = self._logits(h), torch.stack(auxs).sum()
@@ -360,9 +390,16 @@ class Transformer(nn.Module):
     def decode(self, token: torch.Tensor, cache_k: torch.Tensor,
                cache_v: torch.Tensor, cache_len: int):
         """See :func:`decode_step`."""
+        with spmd.replicate_plain(self.embed):
+            return self._decode(token, cache_k, cache_v, cache_len)
+
+    def _decode(self, token, cache_k, cache_v, cache_len):
         B, T = token.shape[0], cache_k.shape[2]
         n = int(cache_len)
-        h = self._embed(token)                                 # [B, 1, d]
+        # pinned as after the forward's embedding (a sharded embedding is a
+        # partial sum over "model")
+        h = shard_lm.constrain_batch(self._embed(token),           # [B, 1, d]
+                                     self.cfg)
         positions = torch.full((B, 1), n, device=h.device)
         # attend to cache positions [0, cache_len]
         mask = (torch.arange(T, device=h.device) <= n)[None, None, None]
@@ -376,9 +413,7 @@ def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor):
     """Token-mean cross entropy + the summed MoE aux losses:
     ``(loss, {"ce", "aux"})``."""
     logits, aux = model(tokens)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    ce = (logz - gold).mean()
+    ce = shard_lm.cross_entropy(logits, labels).mean()
     return ce + aux, {"ce": ce, "aux": aux}
 
 

@@ -36,6 +36,8 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding import spmd
+
 ParamsLike = Union[nn.Module, Mapping[str, torch.Tensor]]
 
 
@@ -98,7 +100,7 @@ class CastDense(nn.Linear):
         self.init_scale = init_scale
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype))
+        return spmd.linear(x, self.weight.to(x.dtype))
 
 
 class RMSNorm(nn.Module):

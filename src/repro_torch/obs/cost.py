@@ -55,7 +55,7 @@ from repro_torch.obs import metrics as _metrics
 
 __all__ = ["set_cost_accounting", "cost_accounting_enabled", "analyze_plan",
            "record_plan_cost", "roofline_table", "counted", "nbytes",
-           "add_wire_bytes", "COST_LABELS"]
+           "add_wire_bytes", "op_counter", "COST_LABELS"]
 
 _COST_ENABLED: List[bool] = [False]
 
@@ -101,28 +101,69 @@ class _Count:
         k["ops"] += int(ops)
 
 
-def _byte_mode(count: _Count):
+def _byte_mode(count: _Count, on_op: Optional[Callable] = None):
     """A ``TorchDispatchMode`` adding each aten operation's operand and
-    result bytes to ``count`` (made here, so importing this module does
-    not touch torch's private dispatch API)."""
+    result bytes to ``count`` and, with ``on_op``, calling ``on_op(func,
+    args, kwargs, out)`` after every operation (made here, so importing
+    this module does not touch torch's private dispatch API).
+
+    An operation on DTensors is left to DTensor (``NotImplemented``),
+    which runs it as operations on each rank's local tensors and
+    collectives: those come back through this mode, so a count over
+    DTensors is one rank's. The meta kernels a ``FakeTensorMode`` runs
+    inside its own dispatch (DTensor's shape propagation over global
+    shapes) are not counted."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
+    try:
+        from torch.distributed.tensor import DTensor
+    except ImportError:                  # a build without distributed
+        DTensor = None
 
     def tensor_bytes(tree) -> int:
         return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
                    if isinstance(x, torch.Tensor))
 
+    def in_fake_mode() -> bool:
+        # under the fake mode (as an infra mode below this one) or inside
+        # its kernel call (older releases stack it above)
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from torch.utils._python_dispatch import (
+            _get_current_dispatch_mode_stack)
+        return (torch._C._meta_in_tls_dispatch_include()
+                or any(isinstance(m, FakeTensorMode)
+                       for m in _get_current_dispatch_mode_stack()))
+
     class _ByteMode(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if DTensor is not None and any(issubclass(t, DTensor)
+                                           for t in types):
+                return NotImplemented
             kwargs = kwargs or {}
             out = func(*args, **kwargs)
+            if in_fake_mode():
+                # DTensor's propagation of global shapes through a
+                # FakeTensorMode: not the program's work
+                return out
             if not func.is_view:
                 count.aten_bytes += tensor_bytes((args, kwargs))
                 count.aten_bytes += tensor_bytes(out)
+            if on_op is not None:
+                on_op(func, args, kwargs, out)
             return out
 
     return _ByteMode()
+
+
+def op_counter(on_op: Optional[Callable] = None):
+    """``(count, mode)``: a dispatch mode counting, while it is entered,
+    every aten operation's operand and result bytes into
+    ``count.aten_bytes`` (the rule of :func:`analyze_plan`), calling
+    ``on_op(func, args, kwargs, out)`` after each (``launch.op_cost``
+    counts FLOPs, collectives and live memory there)."""
+    count = _Count()
+    return count, _byte_mode(count, on_op)
 
 
 def add_wire_bytes(n_bytes: int) -> None:

@@ -4,8 +4,11 @@ Layout: ``<dir>/step_<N>/shard_0.ckpt`` and ``manifest.json``, as the
 reference's ``repro.training.checkpoint``. A step is written into
 ``step_<N>.tmp``, its manifest last, and then renamed, so a crash in the
 middle never shows: ``latest_step`` trusts only directories with a
-manifest. One host writes one shard; the sharded restore waits for the
-multi-GPU slice (ROADMAP Queue 1 item 9).
+manifest. One host writes one shard. Checkpoints are mesh-agnostic, as
+the reference's: ``save`` gathers each DTensor to its full value (a
+collective every rank of its mesh joins) and rank 0 writes, and
+``restore`` places each array on whatever mesh ``shardings`` names
+(``distribute_tensor``), which need not be the mesh it was saved from.
 
 A tree is nested dicts and named tuples (``OptState``) of tensors; None
 leaves are skipped. A leaf's key is its path joined with ``/``, the
@@ -28,6 +31,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.sharding import spmd
 
 _HEADER_LEN = struct.Struct("<Q")
 
@@ -51,19 +55,26 @@ def _items(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
 
 
 def _rebuild(like: Any, arrays: Dict[str, torch.Tensor],
-             prefix: str = "") -> Any:
+             shardings: Any = None, prefix: str = "") -> Any:
+    """``like``'s structure over ``arrays``; a leaf whose ``shardings``
+    entry is ``(mesh, spec or placements)`` is placed there."""
     if like is None:
         return None
     if isinstance(like, torch.Tensor):
-        return arrays[prefix]
+        if shardings is None:
+            return arrays[prefix]
+        return spmd.place(arrays[prefix], *shardings)
 
     def key(name):
         return f"{prefix}/{name}" if prefix else str(name)
 
     if isinstance(like, dict):
-        return {k: _rebuild(v, arrays, key(k)) for k, v in like.items()}
-    return type(like)(*(_rebuild(v, arrays, key(f))
-                        for f, v in zip(like._fields, like)))
+        return {k: _rebuild(v, arrays, None if shardings is None
+                            else shardings[k], key(k))
+                for k, v in like.items()}
+    subs = [None] * len(like) if shardings is None else list(shardings)
+    return type(like)(*(_rebuild(v, arrays, sh, key(f))
+                        for f, v, sh in zip(like._fields, like, subs)))
 
 
 def _encode(tree: Any) -> Tuple[bytes, int]:
@@ -71,7 +82,7 @@ def _encode(tree: Any) -> Tuple[bytes, int]:
     blobs: List[bytes] = []
     offset = 0
     for key, t in _items(tree):
-        raw = t.detach().cpu().contiguous().reshape(-1).view(
+        raw = spmd.full(t.detach()).cpu().contiguous().reshape(-1).view(
             torch.uint8).numpy().tobytes()
         header.append({"key": key, "dtype": str(t.dtype).split(".")[-1],
                        "shape": list(t.shape), "offset": offset,
@@ -100,11 +111,19 @@ def _decode(data: bytes, device: torch.device) -> Dict[str, torch.Tensor]:
 def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None,
          keep: int = 3) -> str:
     """Write ``tree`` (and the JSON-able ``extra``) as step ``step``; keep
-    the newest ``keep`` steps. Returns the step's directory."""
+    the newest ``keep`` steps. Returns the step's directory.
+
+    In a process group every rank calls it: DTensor leaves are gathered
+    by all, rank 0 writes, and the ranks meet at a barrier after the
+    write, so a restore that follows finds the step."""
     step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
+    comp, n_arrays = _encode(tree)
+    group = _world()
+    if group is not None and group.get_rank() != 0:
+        group.barrier()
+        return step_dir
     tmp_dir = step_dir + ".tmp"
     os.makedirs(tmp_dir, exist_ok=True)
-    comp, n_arrays = _encode(tree)
     with open(os.path.join(tmp_dir, "shard_0.ckpt"), "wb") as f:
         f.write(comp)
     manifest = {"step": step, "n_arrays": n_arrays, "extra": extra or {},
@@ -115,7 +134,19 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None,
         shutil.rmtree(step_dir)
     os.rename(tmp_dir, step_dir)
     _gc(ckpt_dir, keep)
+    if group is not None:
+        group.barrier()
     return step_dir
+
+
+def _world():
+    """``torch.distributed`` when a default process group of more than
+    one rank is open, else None."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        return dist
+    return None
 
 
 def _gc(ckpt_dir: str, keep: int) -> None:
@@ -143,9 +174,14 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, step: int, like: Any,
-            device: DeviceLike = None) -> Tuple[Any, dict]:
+            device: DeviceLike = None, shardings: Any = None
+            ) -> Tuple[Any, dict]:
     """Step ``step`` in the structure of ``like``, every tensor on
-    ``device`` (None = CUDA), and the ``extra`` it was saved with."""
+    ``device`` (None = CUDA), and the ``extra`` it was saved with.
+    ``shardings``: a tree like ``like`` whose leaves are ``(mesh, spec)``
+    (a ``sharding.rules`` spec or DTensor placements; e.g.
+    ``rules.tree_shardings``) or None: each array is placed on that mesh
+    as a DTensor (every rank of the mesh calls ``restore``)."""
     dev = resolve_device(device)
     step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(step_dir, "manifest.json")) as f:
@@ -155,4 +191,4 @@ def restore(ckpt_dir: str, step: int, like: Any,
     missing = [k for k, _ in _items(like) if k not in arrays]
     if missing:
         raise ValueError(f"checkpoint missing arrays: {sorted(missing)[:5]}")
-    return _rebuild(like, arrays), manifest["extra"]
+    return _rebuild(like, arrays, shardings), manifest["extra"]

@@ -31,6 +31,7 @@ from repro_torch.configs.recsys import DINConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.gnn import egnn, gatedgcn, gcn, graphcast
 from repro_torch.models.recsys.din import DIN
+from repro_torch.sharding import spmd
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training.optimizer import Tensors
 
@@ -85,9 +86,12 @@ def value_and_grad(loss_fn: Callable, params: Tensors, *batch
     """``((loss, metrics), grads)`` of ``loss_fn(params, *batch)`` in every
     parameter (``jax.value_and_grad(…, has_aux=True)``'s contract)."""
     leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
-    loss, metrics = loss_fn(leaves, *batch)
-    grads = torch.autograd.grad(loss, list(leaves.values()),
-                                allow_unused=True)
+    # DTensor parameters: the model's plain constants act as replicated,
+    # in the backward's recomputation too
+    with spmd.replicate_plain(leaves):
+        loss, metrics = loss_fn(leaves, *batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
     # a parameter the loss does not reach (GatedGCN's edge embedding on a
     # batch without edge features, EGNN's last coordinate update) gets a
     # zero gradient, as under JAX
@@ -136,8 +140,8 @@ def lm_train_step(cfg: TransformerConfig, opt_cfg: opt_mod.OptimizerConfig,
             raise ValueError(f"batch {B} is not a multiple of grad_accum "
                              f"{grad_accum}")
         mb = B // grad_accum
-        grads = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for k, p in params.items()}
+        grads = {k: torch.zeros_like(p, dtype=torch.float32)
+                 for k, p in params.items()}
         loss_sum = 0.0
         for i in range(grad_accum):
             rows = slice(i * mb, (i + 1) * mb)

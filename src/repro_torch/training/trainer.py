@@ -9,9 +9,10 @@
   - ``fail_at_step`` injects a failure, so tests drive the recovery path
     deterministically.
 
-The reference's ``shardings`` (restore onto another mesh) waits for the
-sharding rules (ROADMAP Queue 1 item 10.3): a checkpoint is restored
-onto the device the state's parameters are on. A stream with
+A checkpoint is restored onto the device the state's parameters are on
+or, with ``shardings`` (``rules.tree_shardings`` of the state's specs),
+placed as DTensors on that mesh, which may differ from the one it was
+saved from (the reference's elastic restore). A stream with
 ``state()`` / ``restore()`` (``data.synthetic.TokenStream``) has its
 position saved with each checkpoint and restored with it, so a resumed
 run reads the batches the uninterrupted one would have.
@@ -25,6 +26,7 @@ import math
 import time
 from typing import Any, Callable, Dict, Iterator, Optional
 
+from repro_torch.sharding import spmd
 from repro_torch.training import checkpoint as ckpt_mod
 from repro_torch.training.optimizer import OptState, Tensors
 
@@ -54,10 +56,12 @@ class TrainState:
 
 
 def run(tcfg: TrainerConfig, step_fn: Callable, state: TrainState,
-        data: Iterator) -> Dict[str, Any]:
+        data: Iterator, shardings: Any = None) -> Dict[str, Any]:
     """Run the loop to ``tcfg.total_steps``; ``step_fn(params, opt_state,
     *batch) -> (params, opt_state, metrics)``, one batch of ``data`` a
-    step. Returns ``final_step``, ``losses``, ``stragglers`` and the final
+    step. ``shardings``: the tree ``{"params": …, "opt": …}`` that a
+    restored checkpoint is placed by (see ``checkpoint.restore``).
+    Returns ``final_step``, ``losses``, ``stragglers`` and the final
     ``state``."""
     history = []
     stragglers = 0
@@ -68,7 +72,8 @@ def run(tcfg: TrainerConfig, step_fn: Callable, state: TrainState,
             dev = next(iter(state.params.values())).device
             tree = {"params": state.params, "opt": state.opt_state}
             restored, extra = ckpt_mod.restore(tcfg.ckpt_dir, latest, tree,
-                                               device=dev)
+                                               device=dev,
+                                               shardings=shardings)
             state = TrainState(params=restored["params"],
                                opt_state=restored["opt"], step=latest)
             if hasattr(data, "restore") and "data" in extra:
@@ -84,7 +89,7 @@ def run(tcfg: TrainerConfig, step_fn: Callable, state: TrainState,
             raise SimulatedFailure(f"injected failure at step {state.step}")
         params, opt_state, metrics = step_fn(state.params, state.opt_state,
                                              *batch)
-        loss = float(metrics["loss"])
+        loss = float(spmd.full(metrics["loss"]))
         if not math.isfinite(loss):
             raise FloatingPointError(f"non-finite loss at step {state.step}")
         dt = time.monotonic() - t0

@@ -451,6 +451,7 @@ def test_decode_matches_forward(arch):
     torch.testing.assert_close(dec[:, 0], full[:, -1], rtol=2e-3, atol=2e-3)
 
 
+@needs_reference
 def test_cache_defaults_to_card_and_gspmd_fields_raise():
     cfg = configs.get_reduced_config("phi4-mini-3.8b")
     if torch.cuda.is_available():
@@ -458,10 +459,18 @@ def test_cache_defaults_to_card_and_gspmd_fields_raise():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             T.init_cache(cfg, 1, 4)
-    with pytest.raises(ValueError, match="10.3"):
-        dataclasses.replace(cfg, tp_width=16)
-    with pytest.raises(ValueError, match="10.3"):
-        dataclasses.replace(cfg, batch_axes=("data",))
+    # the GSPMD fields act only on DTensors (tests/test_torch_spmd.py): on
+    # plain tensors a config that sets them gives the same loss, bit for bit
+    model = port_model("phi4-mini-3.8b")
+    t, l = map(torch.from_numpy, tokens("phi4-mini-3.8b"))
+    with torch.no_grad():
+        want = T.loss_fn(model, t, l)[0]
+        model.cfg = dataclasses.replace(cfg, batch_axes=("data",),
+                                        tp_width=16)
+        for layer in model.layers:
+            layer.cfg = model.cfg
+        got = T.loss_fn(model, t, l)[0]
+    assert torch.equal(got, want)
 
 
 @needs_reference
